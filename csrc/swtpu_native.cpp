@@ -1,7 +1,7 @@
 // swtpu native host runtime.
 //
-// The TPU compute path is JAX/Pallas; this library covers the host-side
-// runtime the way the reference's C does: input generation
+// The device compute path is JAX (plus the CUDA kernel in sw_gpu.cu); this
+// library covers the host-side runtime the way the reference's C does: input generation
 // (serial_smithW.c:334-361 — including bit-exact glibc rand() emulation so
 // inputs match a reference binary byte for byte), the predecessor-matrix
 // traceback walk (serial_smithW.c:262-277 — pointer chasing, poorly suited
@@ -339,8 +339,8 @@ long sw_seqfile_read_alpha(const char* path, int8_t* codes, long codes_cap,
 // striped across the register — element (seg, lane) is query position
 // lane*V + seg with V = ceil(n/16) segments — so the F (vertical-gap)
 // dependency is resolved lazily per column instead of serializing every
-// cell, exactly the dependency the TPU stripe kernel resolves with its
-// systolic roll. The reference's closest rung is the 44-thread OpenMP
+// cell, the dependency the GPU wavefront kernel resolves with a warp
+// shuffle. The reference's closest rung is the 44-thread OpenMP
 // wavefront (omp_smithW-v1-refinedOrig.cpp:206-221, 0.41 GCUPS); this
 // single core measures multi-GCUPS (see DESIGN.md host-tier table).
 //
@@ -438,8 +438,8 @@ struct IsaAvx512 {
 
 // Core striped fill, parameterized by lane width. See the block comment
 // above for the algorithm; PADMIN keeps query-padding cells at the zero
-// floor / strictly below any real value (same unmasked-decay argument as
-// the TPU stripe kernel, DESIGN.md §3).
+// floor / strictly below any real value (with negative gaps and
+// mismatches every padded cell decays from a real neighbour).
 // TRACK adds exact first-occurrence argmax: per striped element (= one
 // query row i), strict > keeps the FIRST column j reaching that row's
 // best; the host resolution then scans rows ascending (max score, then
@@ -468,8 +468,9 @@ int32_t sw_score_striped(const int8_t* a, const int8_t* b, long m, long n,
   // match/mismatch mode sentinels score by the raw code compare — N(-1)
   // vs N(-1) MATCHES, exactly like the oracle and the device kernels;
   // in substitution mode any code outside [0, A) on either side scores
-  // PADMIN (the device profile's NEG_SUB sentinel columns,
-  // pallas_fill._profile_on_device). Query positions >= n stay PADMIN.
+  // PADMIN (the NEG_SUB sentinel rows of the device plans' embedded
+  // table, core/substitution.embed_sentinels). Query positions >= n stay
+  // PADMIN.
   // Caller guarantees a-codes in [-3, A).
   const int AR = A + 3;                // profile rows incl. sentinels
   std::vector<int16_t> prof_store(static_cast<size_t>(AR) * Vn * I::LANES +

@@ -6,14 +6,13 @@ below ~4k^2 a single device call is dominated by the dispatch floor, so
 the answer to many small problems is batching. `batch_score`'s auto plan
 picks the fastest backend for the platform:
 
-- TPU, same-shape small/mid pairs  -> packed-pairs Pallas kernel (one
-  stripe chain, per-pair stream injection, ONE ramp bubble total)
-- TPU, huge pairs                  -> pair-grid Pallas kernel
-- CPU/GPU (eager)                  -> striped AVX2/AVX-512 host fill,
+- GPU (or any accelerator)         -> vmapped XLA scan on the device
+- CPU platform (eager calls)       -> striped AVX2/AVX-512 host fill,
   OpenMP across pairs (exact scores AND positions)
-- anything else / banded           -> vmapped XLA scan
+- banded, or inside jit/shard_map  -> vmapped XLA scan
 
-Run: python examples/batch_pairs.py [B] [size]
+Run on the CPU: JAX_PLATFORMS=cpu python examples/batch_pairs.py [B] [size]
+On a GPU machine: python examples/batch_pairs.py [B] [size]
 """
 
 import os

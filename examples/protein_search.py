@@ -4,9 +4,9 @@
 
 Capability extension over the reference (DNA match/mismatch only,
 serial_smithW.c:251-256): a batch of peptide queries is scored against a
-protein database with substitution-matrix profiles on device (the stripe
-kernel's bit-tournament select tree), and the best hit gets an exact
-Gotoh alignment via the affine-aware traceback.
+protein database with the embedded substitution table on device (the
+vmapped scan window sweep), and the best hit gets an exact Gotoh alignment
+via the affine-aware traceback.
 """
 
 import os

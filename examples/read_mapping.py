@@ -1,5 +1,5 @@
 """End-to-end read-mapping example: FASTA in (native C++ reader), sharded
-database search on TPU, exact alignment strings out.
+database search on the device, exact alignment strings out.
 
     python examples/read_mapping.py          # generates demo data, runs
 

@@ -1,9 +1,10 @@
-"""swtpu — TPU-native Smith-Waterman local alignment framework.
+"""swtpu — Smith-Waterman local alignment framework in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
-C/OpenMP/CUDA codebase (chunhualiao/Smith-Waterman): exact int32 wavefront DP
-fill, max-score tracking, traceback, multiple execution plans behind one API,
-adaptive dispatch, banded and affine-gap modes, batched and multi-chip
+Built from scratch in JAX/XLA with a CUDA wavefront kernel for Hopper GPUs,
+with the capabilities of the reference C/OpenMP/CUDA codebase
+(chunhualiao/Smith-Waterman): exact int32 wavefront DP fill, max-score
+tracking, traceback, multiple execution plans behind one API, adaptive
+dispatch, banded and affine-gap modes, batched and multi-device
 (shard_map) scaling.
 """
 
@@ -26,13 +27,6 @@ from .engine.align import Alignment, align, score
 from .engine.traceback import AnchoredReverseMismatch
 
 __version__ = "0.3.0"
-
-
-def sanitize(a, b, **kw):
-    """Debug-mode structural check of the stripe kernel on (a, b) — the
-    reference's DEBUG sanitizer analog (instrument.sanitize)."""
-    from .instrument.sanitize import sanitize_stripe
-    return sanitize_stripe(a, b, **kw)
 
 
 def search(queries, reference, **kw):
@@ -73,8 +67,8 @@ def map_reads(ref_seqs, reads, **kw):
 
 
 def batch_score(a_batch, b_batch, **kw):
-    """Score B independent pairs in one dispatch (packed-pairs / pair
-    grid / host SIMD / vmapped scan by platform and shape) —
+    """Score B independent pairs in one dispatch (vmapped scan on a
+    device, host SIMD on the CPU platform) —
     see `swtpu.dist.batch.batch_score`."""
     from .dist.batch import batch_score as _batch_score
     return _batch_score(a_batch, b_batch, **kw)
@@ -103,7 +97,7 @@ def align_many(a_list, b_list, **kw):
 
 
 __all__ = [
-    "align", "score", "sanitize", "search", "align_hits", "to_sam",
+    "align", "score", "search", "align_hits", "to_sam",
     "pair_hits", "map_reads", "batch_score", "batch_align", "score_many",
     "align_many",
     "Alignment", "Scoring", "EngineConfig",

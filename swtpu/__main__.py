@@ -66,6 +66,8 @@ def map_main(argv) -> int:
                     help="protein mode: BLOSUM62 scoring, protein-alphabet "
                          "FASTA, affine -11/-1 defaults, forward-only")
     args = ap.parse_args(argv)
+    from .core.runtime import enable_compile_cache
+    enable_compile_cache()
 
     from . import Scoring
     from .dist.database import to_sam
@@ -166,18 +168,15 @@ def main(argv=None) -> int:
     if argv and argv[0] == "map":
         return map_main(argv[1:])
     ap = argparse.ArgumentParser(
-        prog="swtpu", description="TPU-native Smith-Waterman alignment")
+        prog="swtpu", description="Smith-Waterman local alignment in JAX")
     ap.add_argument("m", nargs="?", type=int, default=None,
                     help="columns (length of a)")
     ap.add_argument("n", nargs="?", type=int, default=None,
                     help="rows (length of b)")
     ap.add_argument("--plan", default=None,
-                    choices=["host", "scan", "stripe", "pipeline", "auto"],
-                    help="execution plan (default: adaptive dispatch)")
-    ap.add_argument("--sanitize", action="store_true",
-                    help="run the stripe-kernel structural sanitizer on "
-                         "this input (interpret mode; the DEBUG memory-"
-                         "check analog)")
+                    help="execution plan: host, scan, wavefront (Hopper "
+                         "GPU), pipeline or auto (default: adaptive "
+                         "dispatch)")
     ap.add_argument("--band", type=int, default=None, help="band half-width")
     ap.add_argument("--affine", action="store_true",
                     help="affine gaps (Gotoh) instead of linear")
@@ -197,6 +196,13 @@ def main(argv=None) -> int:
                     help="score-only benchmark mode (-DSKIP_BACKTRACK analog)")
     ap.add_argument("--repeat", type=int, default=1)
     args = ap.parse_args(argv)
+    from .core.runtime import enable_compile_cache
+    from .dispatch.plan import check_plan
+    try:
+        check_plan(args.plan)
+    except ValueError as e:
+        ap.error(str(e))
+    enable_compile_cache()
 
     from . import (BUILTIN_A, BUILTIN_B, BUILTIN_LAST_CELL, BUILTIN_MAX_POS,
                    BUILTIN_MAX_SCORE, EngineConfig, Scoring, align,
@@ -240,9 +246,8 @@ def main(argv=None) -> int:
     config = EngineConfig(band=args.band, traceback=not args.skip_backtrack)
 
     # warm the jit caches so the timed phase matches the reference's
-    # compile-free binaries (first compile of a new shape is ~10-30 s);
-    # the builtin example warms too — its "Elapsed time" would otherwise
-    # read as a 40 s result for a 9x8 problem
+    # compile-free binaries; the builtin example warms too — its
+    # "Elapsed time" would otherwise include a compile
     t0 = time.perf_counter()
     align(a, b, scoring=scoring, config=config, plan=args.plan,
           substitution=sub, **alphabet_kw)
@@ -258,20 +263,6 @@ def main(argv=None) -> int:
         best = dt if best is None else min(best, dt)
         print(f"Elapsed time for scoring matrix computation: {dt:.6f}  "
               f"({gcups(m*n, dt):.3f} GCUPS)")
-
-    if args.sanitize:
-        from .instrument.sanitize import sanitize_stripe
-        a_codes = a if isinstance(a, np.ndarray) else None
-        if a_codes is None:
-            from .core.encode import encode
-            a_codes, b_codes = encode(a), encode(b)
-        else:
-            b_codes = b
-        rep = sanitize_stripe(a_codes, b_codes, scoring=scoring,
-                              substitution=sub)
-        print(f"Sanitizer: OK — {rep.valid_cells} cells bit-checked, "
-              f"{rep.prestart_cells} pre-start, {rep.garbage_cells} "
-              f"garbage slots verified (config {rep.config})")
 
     print(f"Max score {res.max_score} at (i={res.max_i}, j={res.max_j}) "
           f"[padded row-major index {res.max_pos}]")

@@ -5,9 +5,9 @@ and generates random inputs with libc ``rand()%4`` (serial_smithW.c:334-361 —
 note the serial version never seeds, so its "random" inputs are deterministic;
 the OpenMP versions seed with time(NULL), omp_smithW.c:491).
 
-TPU-natively, sequences are int8 code arrays (A,C,G,T -> 0..3) so substitution
-scoring is a vector compare (DNA) or a one-hot matmul against a substitution
-matrix (proteins, rides the MXU).
+Here sequences are int8 code arrays (A,C,G,T -> 0..3) so substitution
+scoring is a vector compare (DNA) or a lookup in a substitution table
+(proteins).
 """
 
 from __future__ import annotations

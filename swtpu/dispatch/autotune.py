@@ -1,12 +1,11 @@
-"""Autotuning — the TPU-native analog of tuneCutoff.sh and Apollo.
+"""Autotuning — the runtime analog of tuneCutoff.sh and Apollo.
 
 The reference tunes its serial/parallel CUTOFF by sed-rewriting parameters.h
 and rebuilding over {1..1024} (tuneCutoff.sh:1-15), and v8 delegates the
 per-diagonal policy to Apollo's measured-timing model
-(omp_smithW-v8-apollo.cpp:304-420). Here tuning is runtime:
+(omp_smithW-v8-apollo.cpp:304-420). Here tuning is runtime and at plan
+level:
 
-* `sweep()` measures GCUPS over a grid of (plan, stripe T, chunk C) on the
-  live device and returns the winners per problem size;
 * `save()/load()` persist the tuned table as JSON (no rebuilds);
 * `Policy` is the Apollo analog: it picks the plan for a problem size from
   the tuned table (nearest measured size), and can update online from
@@ -18,255 +17,26 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
-import time
 from pathlib import Path
 from typing import Optional
 
-import jax.numpy as jnp
 import numpy as np
 
-from ..core.config import EngineConfig, Scoring
+from ..core.config import Scoring
 from ..instrument.metrics import gcups
 
 
 def scoring_sig(scoring: Optional[Scoring] = None,
                 substitution=None) -> str:
     """Scoring signature keying tuned-table entries: the measured winners
-    differ by gap mode and profile kind (round2_tpu.json shows protein
-    CB inverting vs linear DNA), so a table match is only valid within
-    one signature — the Apollo per-region analog
+    can differ by gap mode and substitution table, so a table match is
+    only valid within one signature — the Apollo per-region analog
     (omp_smithW-v8-apollo.cpp:305-318: one model per code region)."""
     base = "affine" if (scoring is not None and scoring.is_affine) \
         else "linear"
     if substitution is None:
         return base
-    from ..kernels.pallas_fill import _pack_fits
-    sub = np.asarray(substitution)
-    kind = "p" if _pack_fits(sub) else "u"
-    return f"{base}+sub{sub.shape[0]}{kind}"
-
-
-def _rand_inputs(m: int, n: int, substitution):
-    from ..core.encode import random_pair
-    if substitution is None:
-        return random_pair(m, n, seed=0)
-    A = np.asarray(substitution).shape[0]
-    rng = np.random.default_rng(0)
-    return (rng.integers(0, A, m).astype(np.int8),
-            rng.integers(0, A, n).astype(np.int8))
-
-
-def _time_stripe(m: int, n: int, T: int, C: int, R: int = 1,
-                 CB: int = 1, unroll: int = 1, repeats: int = 2,
-                 k: int = 5, scoring: Scoring = Scoring(),
-                 substitution=None) -> float:
-    from ..kernels import pallas_fill as pf
-
-    a, b = _rand_inputs(m, n, substitution)
-    ap, bt, _ = pf._build_inputs(a, b, T, C, R, CB)
-    nsym = npack = 0
-    if substitution is not None:
-        sub32 = np.asarray(substitution, np.int32)
-        if pf._pack_fits(sub32):
-            npack = -(-sub32.shape[0] // 4)
-            bt = pf._build_profile_packed(bt, sub32)
-        else:
-            nsym = sub32.shape[0]
-            bt = pf._build_profile(bt, sub32)
-    apj, btj = jnp.asarray(ap), jnp.asarray(bt)
-    kw = dict(scoring=scoring, T=T, R=R, C=C, CB=CB, m=m, n=n,
-              unroll=unroll, return_p=False, nsym=nsym, npack=npack,
-              interpret=pf._interpret_default())
-    np.asarray(pf._stripe_call(apj, btj, **kw)[0])    # compile
-    best = float("inf")
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        for _ in range(k - 1):
-            pf._stripe_call(apj, btj, **kw)
-        np.asarray(pf._stripe_call(apj, btj, **kw)[0])
-        best = min(best, (time.perf_counter() - t0) / k)
-    return best
-
-
-def _time_scan(m: int, n: int, repeats: int = 2, k: int = 3,
-               scoring: Scoring = Scoring(), substitution=None) -> float:
-    from ..kernels.scan_fill import scan_fill
-
-    a, b = _rand_inputs(m, n, substitution)
-    sub_table = None
-    if substitution is not None:
-        from ..core.substitution import embed_sentinels
-        sub_table = jnp.asarray(embed_sentinels(np.asarray(substitution)))
-    aj, bj = jnp.asarray(a), jnp.asarray(b)
-    kw = dict(scoring=scoring, sub_table=sub_table)
-    int(scan_fill(aj, bj, **kw).max_score)            # compile
-    best = float("inf")
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        for _ in range(k - 1):
-            scan_fill(aj, bj, **kw)
-        int(scan_fill(aj, bj, **kw).max_score)
-        best = min(best, (time.perf_counter() - t0) / k)
-    return best
-
-
-def sweep(sizes=(512, 2048, 8192, 25632),
-          r_candidates=(1, 4, 8, 16, 32),
-          cb_candidates=(1, 2, 4),
-          c_candidates=(128,),
-          unrolls=(8, 32),
-          verbose: bool = True,
-          allow_non_tpu: bool = False,
-          scoring: Scoring = Scoring(),
-          substitution=None) -> dict:
-    """Measure all plans over the size grid; returns the tuned table.
-
-    ``sizes`` entries are square side lengths (int) or rectangular
-    ``(m, n)`` tuples — the reference sweeps both grids
-    ({32..26000..512} square, 2000 x {2..150000..5000} rect; run-v0.sh).
-    ``scoring``/``substitution`` select the scoring mode to tune —
-    entries are tagged with its signature and dispatch only matches
-    within one signature (affine and BLOSUM champions differ from linear
-    DNA ones). Refuses to run off-TPU by default: timing interpreter-mode
-    kernels would persist a garbage table that dispatch then trusts."""
-    from ..kernels.pallas_fill import LANES, choose_params
-    from .plan import current_platform
-
-    if not allow_non_tpu and current_platform() != "tpu":
-        raise RuntimeError(
-            f"autotune.sweep measures the live device; refusing to tune on "
-            f"platform {current_platform()!r} (pass allow_non_tpu=True to "
-            f"override, e.g. for CI smoke tests)")
-
-    sig = scoring_sig(scoring, substitution)
-    table = {"entries": []}
-    for s in sizes:
-        m, n = (s, s) if isinstance(s, int) else (int(s[0]), int(s[1]))
-        rows = []
-        dt = _time_scan(m, n, scoring=scoring, substitution=substitution)
-        rows.append({"plan": "scan", "T": None, "R": None, "CB": None,
-                     "C": None, "unroll": None, "s": dt,
-                     "gcups": gcups(m * n, dt), "kind": "sweep"})
-        tried = set()
-        for R in r_candidates:
-            Tc, _, _ = choose_params(m, n, r_max=R, cb_max=1,
-                                     affine=scoring.is_affine)
-            Tc = -(-Tc // (LANES * R)) * LANES * R
-            Tc = min(Tc, -(-n // (LANES * R)) * LANES * R)
-            for CB in cb_candidates:
-                for C in c_candidates:
-                    for U in unrolls:
-                        if C % U or (Tc, R, CB, C, U) in tried:
-                            continue
-                        tried.add((Tc, R, CB, C, U))
-                        try:
-                            dt = _time_stripe(m, n, Tc, C, R=R, CB=CB,
-                                              unroll=U, scoring=scoring,
-                                              substitution=substitution)
-                        except Exception:
-                            continue
-                        rows.append({"plan": "stripe", "T": Tc, "R": R,
-                                     "CB": CB, "C": C, "unroll": U, "s": dt,
-                                     "gcups": gcups(m * n, dt),
-                                     "kind": "sweep"})
-        best = max(rows, key=lambda r: r["gcups"])
-        table["entries"].append({"m": m, "n": n, "sig": sig, "best": best,
-                                 "all": rows})
-        if verbose:
-            print(f"size {s} [{sig}]: best {best['plan']} T={best['T']} "
-                  f"R={best['R']} CB={best['CB']} C={best['C']} "
-                  f"U={best['unroll']} {best['gcups']:.1f} GCUPS")
-    return table
-
-
-def _time_batch(B: int, qlen: int, window: int, R: int, CB: int,
-                unroll: Optional[int], repeats: int = 2, k: int = 5,
-                scoring: Scoring = Scoring(), substitution=None) -> float:
-    """Seconds per window dispatch of batch_score_fn at this config,
-    timed exactly as the database searcher uses it (reads prepared once,
-    windows streamed)."""
-    from ..kernels.pallas_fill import batch_score_fn
-
-    rng = np.random.default_rng(0)
-    A = 4 if substitution is None else np.asarray(substitution).shape[0]
-    reads = rng.integers(0, A, (B, qlen)).astype(np.int8)
-    win = rng.integers(0, A, window).astype(np.int8)
-    fn = batch_score_fn(B, qlen, window, scoring=scoring, R=R, CB=CB,
-                        unroll=unroll, substitution=substitution)
-    rj, wj = jnp.asarray(reads), jnp.asarray(win)
-    prepared = fn.prepare(rj)
-    np.asarray(fn.score_prepared(prepared, wj)[0])    # compile
-    best = float("inf")
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        for _ in range(k - 1):
-            fn.score_prepared(prepared, wj)
-        np.asarray(fn.score_prepared(prepared, wj)[0])
-        best = min(best, (time.perf_counter() - t0) / k)
-    return best
-
-
-def sweep_batch(shapes=((2048, 152, 32768),),
-                r_candidates=(32, 16, 8, 4, 2, 1),
-                cb_candidates=(1, 2),
-                unrolls=(None, 8, 32),
-                verbose: bool = True,
-                allow_non_tpu: bool = False,
-                scoring: Scoring = Scoring(),
-                substitution=None) -> dict:
-    """Tune the batched window scorer the database searcher dispatches
-    (batch_score_fn): shapes are (B, qlen, window) triples; entries land
-    in the same table keyed (m=window, n=B*qlen) under the ``batch|``
-    signature, which `make_searcher` consults."""
-    from .plan import current_platform
-
-    if not allow_non_tpu and current_platform() != "tpu":
-        raise RuntimeError(
-            f"autotune.sweep_batch measures the live device; refusing on "
-            f"platform {current_platform()!r}")
-    sig = "batch|" + scoring_sig(scoring, substitution)
-    table = {"entries": []}
-    for B, qlen, window in shapes:
-        rows, skipped = [], []
-        for R in r_candidates:
-            if qlen % R:
-                continue
-            for CB in cb_candidates:
-                for U in unrolls:
-                    try:
-                        dt = _time_batch(B, qlen, window, R, CB, U,
-                                         scoring=scoring,
-                                         substitution=substitution)
-                    except Exception as e:
-                        skipped.append((R, CB, U, f"{type(e).__name__}: "
-                                        f"{e}"))
-                        continue
-                    rows.append({"plan": "stripe", "T": None, "R": R,
-                                 "CB": CB, "C": None, "unroll": U,
-                                 "s": dt,
-                                 "gcups": gcups(B * qlen * window, dt),
-                                 "kind": "sweep-batch", "B": B,
-                                 "qlen": qlen, "window": window})
-        if verbose and skipped:
-            print(f"batch {B}x{qlen} win {window}: {len(skipped)} "
-                  f"configs failed (last: R={skipped[-1][0]} "
-                  f"CB={skipped[-1][1]} U={skipped[-1][2]} "
-                  f"{skipped[-1][3]})")
-        if not rows:
-            if skipped:
-                raise RuntimeError(
-                    f"sweep_batch: every config failed for shape "
-                    f"({B}, {qlen}, {window}); last error: "
-                    f"{skipped[-1][3]}")
-            continue
-        best = max(rows, key=lambda r: r["gcups"])
-        table["entries"].append({"m": window, "n": B * qlen, "sig": sig,
-                                 "best": best, "all": rows})
-        if verbose:
-            print(f"batch {B}x{qlen} win {window} [{sig}]: best "
-                  f"R={best['R']} CB={best['CB']} U={best['unroll']} "
-                  f"{best['gcups']:.1f} effective GCUPS")
-    return table
+    return f"{base}+sub{np.asarray(substitution).shape[0]}"
 
 
 def save(table: dict, path="swtpu_tuned.json") -> None:
@@ -342,10 +112,8 @@ class Policy:
 
         entry = min(cands, key=lambda e: sum(dist(e)))
         dc, da = dist(entry)
-        # tuned T is size-specific (a 25632^2-tuned stripe height applied
-        # to 65536^2 would force 3 stripes where one is optimal), so the
-        # cells gate is deliberately tight; beyond it the engine's cost
-        # model generalizes better than a transferred config
+        # a measured winner is size-specific, so the cells gate is
+        # deliberately tight; beyond it the static tiers generalize better
         if dc > math.log(max_cells_ratio) or da > math.log(max_aspect_ratio):
             return None
         return dict(entry["best"])
@@ -360,9 +128,7 @@ class Policy:
         if not self.table:
             return ()
         return tuple(
-            (e["m"], e["n"], e["best"].get("plan"), e["best"].get("T"),
-             e["best"].get("R"), e["best"].get("CB"),
-             e["best"].get("C"), e["best"].get("unroll"))
+            (e["m"], e["n"], e["best"].get("plan"))
             for e in self.table.get("entries", [])
             if e.get("sig", "linear") == sig)
 
@@ -371,20 +137,17 @@ class Policy:
         if got is not None:
             return got
         from .plan import choose_plan
-        return {"plan": choose_plan(m, n), "T": None, "R": None,
-                "CB": None, "C": None, "unroll": None}
+        return {"plan": choose_plan(m, n)}
 
-    def observe(self, m: int, n: int, plan: str, T, C, seconds: float,
-                R=None, CB=None, unroll=None, sig: str = "linear",
-                kind: str = "observed"):
+    def observe(self, m: int, n: int, plan: str, seconds: float,
+                sig: str = "linear", kind: str = "observed"):
         """``kind`` records the timing methodology ('observed' = one live
         dispatch incl. the result fetch, 'sweep' = dispatch-amortized) so
         best-promotion and merges compare like with like."""
         if self.table is None:
             self.table = {"entries": []}
         self.version += 1
-        row = {"plan": plan, "T": T, "R": R, "CB": CB, "C": C,
-               "unroll": unroll, "s": seconds,
+        row = {"plan": plan, "s": seconds,
                "gcups": gcups(m * n, seconds), "kind": kind}
         for e in self.table["entries"]:
             if e["m"] == m and e["n"] == n \

@@ -2,7 +2,7 @@
 
 The reference processes one pair per process (SURVEY.md §2.6: data
 parallelism is absent). Here a batch of pairs shards across chips with
-`shard_map`; each device vmaps the scan/stripe fill over its shard, and the
+`shard_map`; each device vmaps the scan fill over its shard, and the
 global best hit merges with a deterministic lexicographic reduction —
 replacing the reference's `omp critical` (omp_smithW.c:384-387) and
 atomicCAS retry loops (cuda_global_mem_smithW.cu:246-260) with a
@@ -50,108 +50,25 @@ def _pair_fill(a, b, scoring, band, sub_table=None):
     return out.max_score, out.max_i, out.max_j
 
 
-_pairs_cache = {}          # LRU of compiled pair-kernel builders
-_PAIRS_CACHE_CAP = 16      # same eviction policy as database._searcher_memo
-
-
-def _pairs_cached(key, build):
-    fn = _pairs_cache.get(key)
-    if fn is not None:
-        _pairs_cache[key] = _pairs_cache.pop(key)       # LRU touch
-        return fn
-    fn = build()
-    if len(_pairs_cache) >= _PAIRS_CACHE_CAP:
-        _pairs_cache.pop(next(iter(_pairs_cache)))
-    _pairs_cache[key] = fn
-    return fn
-
-
-def _scoring_ok_for_stripe(scoring: Scoring, substitution) -> bool:
-    from ..kernels.pallas_fill import _penalties_negative, _sub_gaps_ok
-    return (_sub_gaps_ok(scoring) if substitution is not None
-            else _penalties_negative(scoring))
-
-
-# Packed-pairs injection tensor cap: steps * B*n/R * 4 bytes of HBM
-# (~1/R of the batch's total cell count) — beyond this the pair grid's
-# O(m+n)-state sweep is the right tool anyway.
-PACKED_INJ_BYTES_CAP = 256 << 20
-# The injection build is a chain of B + stripes dynamic-update-slices;
-# keep the traced program bounded.
-PACKED_MAX_PAIRS = 512
-
-
-def _use_packed_kernel(scoring: Scoring, band, B: int, m: int, n: int,
-                       plan: str, substitution=None) -> bool:
-    """Route same-shape batches to the packed-pairs kernel (ONE stripe
-    chain + per-pair stream injection, VERDICT r3 #4): it amortizes the
-    ramp bubble over the whole batch, which is exactly what the per-pair
-    grid cannot do (measured 4.0 effective GCUPS at 64x1056^2). The pair
-    grid keeps the huge-pair regime (injection tensor over the HBM cap)
-    and banded batches stay on the vmapped scan."""
-    if plan == "packed":
-        if band is not None:
-            raise ValueError(
-                "plan='packed' batch scoring does not support band; "
-                "use plan='auto'/'scan' (vmapped scan) for banded batches")
-        return True
-    if plan != "auto" or band is not None:
-        return False
-    if not (2 <= B <= PACKED_MAX_PAIRS and m >= 2 and n >= 1):
-        return False
-    if not _scoring_ok_for_stripe(scoring, substitution):
-        return False
-    from ..dispatch.plan import current_platform
-    if current_platform() != "tpu":
-        return False
-    from ..kernels.pallas_fill import packed_pairs_geometry
-    R, rlen, _ = packed_pairs_geometry(n)
-    ltot = B * rlen // R
-    inj_bytes = (m + ltot) * ltot * 4
-    return inj_bytes <= PACKED_INJ_BYTES_CAP
-
-
-def _use_pairs_kernel(scoring: Scoring, band, m: int, n: int,
-                      plan: str, interpret: Optional[bool],
-                      substitution=None) -> bool:
-    if plan == "stripe":
-        if band is not None:
-            # pairs_score_fn has no banded mode; returning full-matrix
-            # scores where banded ones were requested would be silent wrong
-            raise ValueError(
-                "plan='stripe' batch scoring does not support band; "
-                "use plan='auto'/'scan' (vmapped scan) for banded batches")
-        return True
-    if plan != "auto" or band is not None:
-        return False
-    from ..dispatch.plan import current_platform
-    # measured on v5e: the pair-grid kernel wins once each pair has enough
-    # rows to fill lanes and enough cells to amortize its launch; thin or
-    # tiny pairs stay on the vmapped scan
-    return (current_platform() == "tpu"
-            and _scoring_ok_for_stripe(scoring, substitution)
-            and m >= 2 and n >= 512 and m * n >= (1 << 20))
+BATCH_PLANS = ("auto", "scan", "host-simd", "pipeline")
 
 
 def batch_score(a_batch, b_batch, scoring: Scoring = Scoring(),
                 band: Optional[int] = None, plan: str = "auto",
-                interpret: Optional[bool] = None,
                 mesh: Optional[Mesh] = None,
                 substitution=None) -> BatchHits:
-    """Single-device batched scoring (or, with ``mesh``, the bubble-filled
-    multi-chip pipeline for pairs too wide for one chip).
+    """Single-device batched scoring (or, with ``mesh`` and
+    plan='pipeline', the bubble-filled multi-device pipeline).
 
-    On TPU (linear or affine, no band) small-to-mid same-shape batches run
-    the packed-pairs kernel (kernels.pallas_fill.pairs_packed_score_fn:
-    one stripe chain, per-pair stream injection, one ramp bubble for the
-    whole batch); batches over the packed path's HBM/size caps run ONE
-    Pallas program with a pair grid dimension (pairs_score_fn); elsewhere,
-    the vmapped XLA scan. plan='packed'/'stripe'/'scan' force a path.
-    Pairs wider than the single-kernel cap (or an explicit
-    plan='pipeline' with a mesh) stream through
-    dist.pipeline.pipeline_align_batch — the wavefront ramp bubble
-    amortizes over the whole batch."""
-    from ..kernels.pallas_fill import MAX_WIDTH
+    'auto' runs the vmapped XLA scan on an accelerator, and the striped
+    SIMD host scorer (csrc sw_score_simd_batch) for eager calls on the CPU
+    platform, where it is the faster way to use the same cores.
+    plan='scan' / 'host-simd' force a path; plan='pipeline' with a mesh
+    streams the pairs through dist.pipeline.pipeline_align_batch — the
+    wavefront ramp bubble amortizes over the whole batch."""
+    if plan not in BATCH_PLANS:
+        raise ValueError(
+            f"unknown batch plan {plan!r}; expected one of {BATCH_PLANS}")
     B, m = a_batch.shape
     n = b_batch.shape[1]
     if plan == "host-simd":
@@ -172,31 +89,30 @@ def batch_score(a_batch, b_batch, scoring: Scoring = Scoring(),
             raise ValueError(
                 "plan='host-simd' needs concrete (eager) inputs — inside "
                 "jit/shard_map use plan='auto' instead")
-    if mesh is not None and band is None \
-            and (m > MAX_WIDTH or plan == "pipeline"):
+    if mesh is not None and band is None and plan == "pipeline":
         # host-level routing (never under a trace: mesh dispatch happens
         # before any shard_map)
         import numpy as np
-        from ..dispatch.plan import pipeline_projection
+        from ..dispatch.plan import pipeline_block_rows
         from .pipeline import pipeline_align_batch
         axis = list(mesh.shape.keys())[0]
-        _, br = pipeline_projection(m, n, mesh.shape[axis], scoring)
+        br = pipeline_block_rows(m, n, mesh.shape[axis])
         res = pipeline_align_batch(np.asarray(a_batch),
                                    np.asarray(b_batch), mesh,
-                                   block_rows=br or 512, scoring=scoring,
+                                   block_rows=br, scoring=scoring,
                                    axis=axis, substitution=substitution)
         return BatchHits(res.scores, res.max_i, res.max_j)
-    # host striped-SIMD route (non-TPU platforms, eager calls only —
-    # inside shard_map/jit the inputs are tracers and the device plans
-    # apply): exact scores AND first-occurrence positions at multi-GCUPS
-    # per core (csrc sw_score_simd_batch, OpenMP across pairs) instead
-    # of the vmapped-scan rate. Self-gating: int16 score caps, sentinel
-    # codes, degenerate scorings all fall through.
+    # host striped-SIMD route (CPU platform, eager calls only — inside
+    # shard_map/jit the inputs are tracers and the device plans apply):
+    # exact scores AND first-occurrence positions at multi-GCUPS per core
+    # (csrc sw_score_simd_batch, OpenMP across pairs) instead of the
+    # vmapped-scan rate. Self-gating: int16 score caps, sentinel codes,
+    # degenerate scorings all fall through.
     if plan in ("auto", "host-simd") and band is None \
             and not isinstance(a_batch, jax.core.Tracer) \
             and not isinstance(b_batch, jax.core.Tracer):
-        from ..dispatch.plan import current_platform
-        if plan == "host-simd" or current_platform() != "tpu":
+        from ..dispatch.plan import capability
+        if plan == "host-simd" or capability().platform == "cpu":
             import numpy as np
             from ..runtime_native import score_simd_batch
             got = score_simd_batch(np.asarray(a_batch),
@@ -214,29 +130,6 @@ def batch_score(a_batch, b_batch, scoring: Scoring = Scoring(),
                     f"{simd_reject_reason(m, n, scoring, substitution)}")
     a_batch = jnp.asarray(a_batch)
     b_batch = jnp.asarray(b_batch)
-    if _use_packed_kernel(scoring, band, B, m, n, plan, substitution):
-        import numpy as np
-        from ..kernels.pallas_fill import pairs_packed_score_fn
-        sub_key = (None if substitution is None
-                   else np.asarray(substitution, np.int32).tobytes())
-        key = ("packed", B, m, n, scoring, interpret, sub_key)
-        fn = _pairs_cached(key, lambda: pairs_packed_score_fn(
-            B, m, n, scoring=scoring, interpret=interpret,
-            substitution=substitution))
-        s, i, j = fn(a_batch, b_batch)
-        return BatchHits(s, i, j)
-    if _use_pairs_kernel(scoring, band, m, n, plan, interpret,
-                         substitution):
-        import numpy as np
-        from ..kernels.pallas_fill import pairs_score_fn
-        sub_key = (None if substitution is None
-                   else np.asarray(substitution, np.int32).tobytes())
-        key = (B, m, n, scoring, interpret, sub_key)
-        fn = _pairs_cached(key, lambda: pairs_score_fn(
-            B, m, n, scoring=scoring, interpret=interpret,
-            substitution=substitution))
-        s, i, j = fn(a_batch, b_batch)
-        return BatchHits(s, i, j)
     s, i, j = jax.vmap(
         functools.partial(_pair_fill, scoring=scoring, band=band,
                           sub_table=_sub_to_table(substitution))
@@ -270,14 +163,13 @@ def _pad_exact(scoring: Scoring, substitution) -> bool:
 
 def score_many(a_list, b_list, scoring: Scoring = Scoring(),
                substitution=None, plan: str = "auto",
-               interpret: Optional[bool] = None,
                mesh: Optional[Mesh] = None) -> BatchHits:
     """Exact batched scoring of HETEROGENEOUS-shape pairs.
 
     `batch_score` needs same-shape batches; real workloads (candidate
     re-scoring, all-vs-all sweeps) rarely have them, and scoring K
     mid-size pairs one `score()` at a time pays K device round-trips
-    (the flat per-call floor of VERDICT r4 #4). Here pairs are padded
+    (the flat per-call dispatch floor). Here pairs are padded
     into power-of-two shape buckets (exact — see `_pad_exact`) and each
     bucket runs ONE `batch_score` sweep, so K problems cost one dispatch
     per bucket (~log² distinct shapes) and compiled programs are reused
@@ -318,8 +210,7 @@ def score_many(a_list, b_list, scoring: Scoring = Scoring(),
         for r, k in enumerate(idx):
             aa[r, :len(a_list[k])] = a_list[k]
             bb[r, :len(b_list[k])] = b_list[k]
-        hits = batch_score(aa, bb, scoring, plan=plan,
-                           interpret=interpret, mesh=mesh,
+        hits = batch_score(aa, bb, scoring, plan=plan, mesh=mesh,
                            substitution=substitution)
         s = np.asarray(hits.scores)
         i_ = np.asarray(hits.max_i)
@@ -332,7 +223,6 @@ def score_many(a_list, b_list, scoring: Scoring = Scoring(),
 
 def batch_align(a_batch, b_batch, scoring: Scoring = Scoring(),
                 band: Optional[int] = None, plan: str = "auto",
-                interpret: Optional[bool] = None,
                 mesh: Optional[Mesh] = None, substitution=None,
                 alphabet: Optional[str] = None, top: Optional[int] = None):
     """Batched scoring + alignment strings: scores every pair in one
@@ -346,8 +236,7 @@ def batch_align(a_batch, b_batch, scoring: Scoring = Scoring(),
     from ..engine.align import align as _align
 
     hits = batch_score(a_batch, b_batch, scoring, band=band, plan=plan,
-                       interpret=interpret, mesh=mesh,
-                       substitution=substitution)
+                       mesh=mesh, substitution=substitution)
     scores = np.asarray(hits.scores)
     order = sorted((i for i in range(len(scores)) if scores[i] > 0),
                    key=lambda i: (-scores[i], i))
@@ -373,7 +262,6 @@ def batch_align(a_batch, b_batch, scoring: Scoring = Scoring(),
 
 def align_many(a_list, b_list, scoring: Scoring = Scoring(),
                substitution=None, plan: str = "auto",
-               interpret: Optional[bool] = None,
                mesh: Optional[Mesh] = None,
                alphabet: Optional[str] = None, top: Optional[int] = None):
     """`batch_align` for HETEROGENEOUS-shape pairs: one bucketed
@@ -385,8 +273,7 @@ def align_many(a_list, b_list, scoring: Scoring = Scoring(),
 
     from ..engine.align import align as _align
 
-    hits = score_many(a_list, b_list, scoring, plan=plan,
-                      interpret=interpret, mesh=mesh,
+    hits = score_many(a_list, b_list, scoring, plan=plan, mesh=mesh,
                       substitution=substitution)
     scores = np.asarray(hits.scores)
     order = sorted((i for i in range(len(scores)) if scores[i] > 0),

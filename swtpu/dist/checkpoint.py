@@ -10,8 +10,8 @@ runs THE live pipeline stage (dist/pipeline._make_stage — one stage
 implementation, not a re-implementation that drifts) in host-stepped
 segments, snapshotting that carry to an .npz between segments and
 resuming from any snapshot bit-exactly. Block fills are the same
-`_make_block` the live pipeline uses: the Pallas stripe (profile) kernel
-on TPU meshes, linear/affine/substitution alike.
+`_make_block` the live pipeline uses (the boundary-injected scan), linear,
+affine and substitution alike.
 """
 
 from __future__ import annotations
@@ -60,7 +60,6 @@ class ResumablePipeline:
     scoring: Scoring = Scoring()
     axis: str = "seq"
     stages_per_segment: int = 8
-    block_fill: str = "auto"
     substitution: Optional[np.ndarray] = None
 
     def __post_init__(self):
@@ -102,8 +101,7 @@ class ResumablePipeline:
         perm = [(i, i + 1) for i in range(D - 1)]
         K = self.stages_per_segment
         affine = self.scoring.is_affine
-        block = _make_block(self.mesh, mc, R, self.scoring,
-                            self.block_fill, is_local=True,
+        block = _make_block(mc, self.scoring, is_local=True,
                             substitution=self.substitution)
         stage = _make_stage(D=D, mc=mc, R=R, nblocks=nblocks, npb=nblocks,
                             axis=axis, perm=perm, block=block,

@@ -2,8 +2,9 @@
 
 The reference has no distributed backend at all (SURVEY.md §2.6 — grep finds
 no MPI/NCCL/UCX); its inter-memory movement is OpenMP map clauses and CUDA
-memcpy. The TPU-native comm layer is `jax.sharding.Mesh` + `shard_map` with
-XLA collectives riding ICI (chip-to-chip) and DCN (host-to-host).
+memcpy. Here the comm layer is `jax.sharding.Mesh` + `shard_map` with XLA
+collectives (NCCL between GPUs: NVLink within a host, the network
+between hosts).
 """
 
 from __future__ import annotations
@@ -45,17 +46,16 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
                          **kwargs) -> None:
     """Multi-host entry point (jax.distributed.initialize passthrough).
 
-    On a pod slice each host calls this before building meshes (after it,
-    ``jax.devices()`` spans every host and the mesh helpers above build
-    global meshes; collectives between co-located chips ride ICI, between
-    hosts DCN). Single-host (and this dev environment) skips it. On Cloud
-    TPU pods the three arguments are auto-detected from the environment
-    and may be omitted entirely::
+    On a multi-host cluster each host calls this before building meshes
+    (after it, ``jax.devices()`` spans every host and the mesh helpers
+    above build global meshes). Single-host runs skip it. Where JAX can
+    detect the cluster from its environment (e.g. a Slurm allocation) the
+    three arguments may be omitted; elsewhere give them explicitly::
 
         # every host, before any jax computation:
         from swtpu.dist.mesh import initialize_multihost, pipeline_mesh
-        initialize_multihost()                  # TPU pod: auto-detected
-        # or, explicitly (e.g. CPU/GPU clusters):
+        initialize_multihost()                  # cluster auto-detected
+        # or, explicitly (e.g. plain GPU hosts):
         initialize_multihost(coordinator_address="host0:8476",
                              num_processes=4, process_id=RANK)
         mesh = pipeline_mesh()                  # now spans all hosts

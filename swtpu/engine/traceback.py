@@ -4,7 +4,7 @@ Hirschberg / Myers-Miller divide-and-conquer.
 The reference keeps the full O(mn) predecessor matrix and walks it on the
 host (serial_smithW.c:262-277); its memory-lean rotated family simply leaves
 traceback unimplemented (rotated-cuda/sw-rotated.cu:286-319 is a TODO stub).
-This module closes that gap TPU-natively:
+This module closes that gap:
 
 1. `locate()` — forward score pass finds the alignment END; a second score
    pass on the reversed clipped prefixes finds the START (the classic
@@ -30,54 +30,27 @@ Hirschberg-style methods).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
-from ..core.config import DIAGONAL, E_EXT, F_EXT, LEFT, NONE, UP, Scoring
+from ..core.config import (DIAGONAL, E_EXT, F_EXT, LEFT, NONE, UP,
+                           EngineConfig, Scoring)
 from ..core.encode import DNA_ALPHABET
 from ..kernels.scan_fill import diag_to_rowmajor, scan_fill
 
-_STRIPE_MIN_CELLS = 1 << 20
 _NEG = -(1 << 30)
 
 
-def _use_stripe(m: int, n: int, scoring: Scoring, nw: bool = False,
-                sub=None) -> bool:
-    """Stripe-kernel gate: all score and NW (global) passes — linear,
-    affine, AND substitution-profile (BLOSUM/PAM) — run the stripe kernel
-    on TPU, so protein lean traceback runs at stripe speed (the profile
-    modes compose with boundary injection since round 3). m is the WIDTH
-    of the fill being launched — beyond MAX_WIDTH the Q stream + boundary
-    ring no longer fit VMEM (mega-matrix windows reached via the pipeline
-    tier fall back to the scan fills here). NW affine additionally
-    requires the kernel's gentler -2^24 E/F sentinel to dominate every
-    reachable score by 2x (extreme penalty scales keep the scan's -2^30).
-    Substitution mode also bounds the packed-argmax range conservatively
-    (worst table entry x min-side x the deepest R the cost model picks)."""
-    from ..dispatch.plan import current_platform
-    from ..kernels.pallas_fill import (MAX_WIDTH, _penalties_negative,
-                                       _sub_gaps_ok)
-    if sub is not None:
-        sub_arr = np.asarray(sub)
-        if not _sub_gaps_ok(scoring):
-            return False
-        if int(np.abs(sub_arr).max()) * min(m, n) * 32 >= (1 << 30):
-            return False
-    if nw and scoring.is_affine:
-        worst = max(abs(scoring.gap_open), abs(scoring.gap_extend),
-                    abs(scoring.mismatch), abs(scoring.match))
-        if sub is not None:
-            worst = max(abs(scoring.gap_open), abs(scoring.gap_extend),
-                        int(np.abs(np.asarray(sub)).max()))
-        if worst * (m + n) >= (1 << 23):
-            return False
-    penalties_ok = (_sub_gaps_ok(scoring) if sub is not None
-                    else _penalties_negative(scoring))
-    return (current_platform() == "tpu"
-            and penalties_ok and m >= 2 and n >= 1
-            and m <= MAX_WIDTH and m * n >= _STRIPE_MIN_CELLS)
+def _device_resident() -> bool:
+    """P matrices stay on an accelerator and are walked there; on the CPU
+    platform the host walk reads them in place."""
+    from ..dispatch.plan import capability
+    return capability().platform != "cpu"
 
 
 def _sub_table(sub):
@@ -89,28 +62,16 @@ def _sub_table(sub):
     return jnp.asarray(embed_sentinels(np.asarray(sub)))
 
 
-_fn_cache = {}
-
-
-def _cached(kind, m, n, scoring, sub=None, **kw):
-    """``sub``: optional raw substitution table, keyed by content (arrays
-    aren't hashable) and forwarded as the maker's ``substitution=``."""
-    sub_key = None if sub is None else np.asarray(sub).tobytes()
-    key = (kind, m, n, scoring, sub_key, tuple(sorted(kw.items())))
-    if key not in _fn_cache:
-        from ..kernels import pallas_fill as pf
-        maker = {"score": pf.stripe_score_fn, "block": pf.stripe_block_fn}
-        _fn_cache[key] = maker[kind](m, n, scoring, substitution=sub, **kw)
-        if len(_fn_cache) > 64:
-            _fn_cache.pop(next(iter(_fn_cache)))
-    return _fn_cache[key]
-
-
 def _local_score(a: np.ndarray, b: np.ndarray, scoring: Scoring, sub=None):
-    """Score-only forward pass: (max_score, max_i, max_j, last_cell)."""
+    """Score-only forward pass: (max_score, max_i, max_j, last_cell), on
+    the device plan dispatch picks for a score-only fill of this shape
+    (the GPU kernel where it can run, else the scan)."""
+    from ..dispatch.plan import choose_exec
     m, n = len(a), len(b)
-    if _use_stripe(m, n, scoring, sub=sub):
-        fn = _cached("score", m, n, scoring, sub=sub, want_last=True)
+    cfg = EngineConfig(host_max_cells=0, traceback=False)
+    if choose_exec(m, n, cfg, scoring, sub).plan == "wavefront":
+        from ..kernels import gpu_fill
+        fn = gpu_fill.score_fn(m, n, scoring, sub)
         s, i, j, last = fn(jnp.asarray(a), jnp.asarray(b))
         return int(s), int(i), int(j), int(last)
     out = scan_fill(jnp.asarray(a), jnp.asarray(b), scoring=scoring,
@@ -124,21 +85,6 @@ def _nw_argmax(a: np.ndarray, b: np.ndarray, scoring: Scoring,
     """Global-mode fill with injected boundaries; returns
     (max_score, max_i, max_j). Used by the anchored reverse pass, whose
     max is guaranteed positive."""
-    m, n = len(a), len(b)
-    if _use_stripe(m, n, scoring, nw=True, sub=sub):
-        fn = _cached("block", m, n, scoring, sub=sub, local=False,
-                     want_bottom=False)
-        if scoring.is_affine:
-            # anchored boundaries: E/F cannot flow in from outside
-            top_f = jnp.full((m + 1,), _NEG, jnp.int32)
-            left_e = jnp.full((n + 1,), _NEG, jnp.int32)
-            s, i, j, *_ = fn(jnp.asarray(a), jnp.asarray(b),
-                             jnp.asarray(top), jnp.asarray(left),
-                             top_f, left_e)
-        else:
-            s, i, j, _, _, _ = fn(jnp.asarray(a), jnp.asarray(b),
-                                  jnp.asarray(top), jnp.asarray(left))
-        return int(s), int(i), int(j)
     out = scan_fill(jnp.asarray(a), jnp.asarray(b), scoring=scoring,
                     local=False, top_row=jnp.asarray(top),
                     left_col=jnp.asarray(left), sub_table=_sub_table(sub))
@@ -365,17 +311,6 @@ def _nw_last_row(a: np.ndarray, b: np.ndarray, scoring: Scoring,
     a_pad[:m] = a
     top = (g * np.arange(mp + 1)).astype(np.int32)
     left = (g * np.arange(n + 1)).astype(np.int32)
-    if _use_stripe(n, mp, scoring, nw=True, sub=sub):
-        # transposed stripe fill: the bottom row of (a, b) is the right
-        # column of (b, a), which the kernel exports for any length
-        # (padded a-rows sit below the real rows and cannot affect them);
-        # the substitution table transposes with the operand roles
-        subt = None if sub is None else np.asarray(sub).T
-        fn = _cached("block", n, mp, scoring, sub=subt, local=False,
-                     want_bottom=False)
-        _, _, _, _, _, right = fn(jnp.asarray(b), jnp.asarray(a_pad),
-                                  jnp.asarray(left), jnp.asarray(top))
-        return np.asarray(right[:m + 1]).astype(np.int64)
     out = scan_fill(jnp.asarray(a_pad), jnp.asarray(b), scoring=scoring,
                     local=False, top_row=jnp.asarray(top),
                     left_col=jnp.asarray(left), sub_table=_sub_table(sub))
@@ -404,31 +339,13 @@ def _nw_last_rows_affine(a: np.ndarray, b: np.ndarray, scoring: Scoring,
     top[1:] = g0 + ext * np.arange(1, mp + 1)
     left = (tbg + ext * np.arange(n + 1)).astype(np.int32)
     left[0] = 0
-    if _use_stripe(n, mp, scoring, nw=True, sub=sub):
-        # transposed stripe NW: the bottom row of (a, b) is the right
-        # column of (b, a), and transposition swaps the Gotoh states —
-        # transposed E (horizontal, consumes b chars) IS the original F,
-        # so right_e of the transposed fill is the original bottom_f.
-        # Boundaries swap accordingly (top<->left, top_f<->left_e);
-        # the substitution table transposes with the operand roles.
-        subt = None if sub is None else np.asarray(sub).T
-        fn = _cached("block", n, mp, scoring, sub=subt, local=False,
-                     want_bottom=False)
-        negf = jnp.full((n + 1,), _NEG, jnp.int32)
-        nege = jnp.full((mp + 1,), _NEG, jnp.int32)
-        _, _, _, _, _, right, _, right_e = fn(
-            jnp.asarray(b), jnp.asarray(a_pad), jnp.asarray(left),
-            jnp.asarray(top), negf, nege)
-        H = np.asarray(right[:m + 1]).astype(np.int64)
-        F = np.asarray(right_e[:m + 1]).astype(np.int64)
-    else:
-        out = scan_fill(jnp.asarray(a_pad), jnp.asarray(b),
-                        scoring=scoring, local=False,
-                        top_row=jnp.asarray(top),
-                        left_col=jnp.asarray(left),
-                        sub_table=_sub_table(sub))
-        H = np.asarray(out.bottom_row[:m + 1]).astype(np.int64)
-        F = np.asarray(out.bottom_f[:m + 1]).astype(np.int64)
+    out = scan_fill(jnp.asarray(a_pad), jnp.asarray(b),
+                    scoring=scoring, local=False,
+                    top_row=jnp.asarray(top),
+                    left_col=jnp.asarray(left),
+                    sub_table=_sub_table(sub))
+    H = np.asarray(out.bottom_row[:m + 1]).astype(np.int64)
+    F = np.asarray(out.bottom_f[:m + 1]).astype(np.int64)
     F[0] = left[n]          # the column-0 boundary gap is an F state
     return H, F
 
@@ -524,79 +441,49 @@ def hirschberg(a: np.ndarray, b: np.ndarray, scoring: Scoring = Scoring(),
     return loc.score, loc, ra, rb
 
 
-def _stripe_window_walk(sub_a, sub_b, wn, wm, scoring, sub=None):
-    """LOCAL P-capture refill on the stripe kernel + an ON-DEVICE walk of
-    the predecessor chain (full Gotoh state machine for affine P). The P
-    tensor (O(window) int32) never leaves the chip — only the O(path) move
-    sequence does. The window's bottom-right corner is the located end
-    cell, so walking from there reproduces an optimal path; the zero-floor
-    NONE stop is the located start. ``sub``: optional substitution table
-    (protein windows refill on the same profile kernel)."""
-    import jax
-    from jax import lax
-    from ..kernels import pallas_fill as pf
+@functools.partial(jax.jit, static_argnames=("wn", "wm"))
+def _walk_diag(p_diag, *, wn: int, wm: int):
+    """On-device predecessor walk over the scan's diagonal-major P (cell
+    (i, j) at [i + j - 2, i - 1]) from the window's bottom-right corner,
+    with the full Gotoh state machine for affine P. Only the O(path) move
+    sequence leaves the device, never the O(window) P matrix. Returns
+    (moves written, moves); a written NONE ends the walk at the local
+    start (the zero floor)."""
+    cap = wn + wm
 
-    T, R, _ = pf._resolve_params(wm, wn, None, None, scoring,
-                                 return_p=True, CB=1)
-    nsym = npack = 0
-    if sub is None:
-        pf._check_packing(wm, wn, R, scoring)
-    ap, bt, S = pf._build_inputs(sub_a, sub_b, T, pf.DEFAULT_CHUNK, R)
-    if sub is not None:
-        sub32 = np.asarray(sub, np.int32)
-        if pf._pack_fits(sub32):
-            npack = -(-sub32.shape[0] // 4)
-            bt = pf._build_profile_packed(bt, sub32)
-        else:
-            nsym = sub32.shape[0]
-            bt = pf._build_profile(bt, sub32)
-    interp = pf._interpret_default()
-    outs = pf._stripe_call(
-        jnp.asarray(ap), jnp.asarray(bt), scoring=scoring, T=T, R=R,
-        C=pf.DEFAULT_CHUNK, m=wm, n=wn, return_p=True, interpret=interp,
-        nsym=nsym, npack=npack,
-        unroll=pf._auto_unroll(pf.DEFAULT_CHUNK, interp))
-    pdev = outs[2]                 # (S, steps_pad, CB, R, sub, 128) device
+    def body(carry):
+        i, j, state, pos, moves = carry
+        code = p_diag[i + j - 2, i - 1]
+        base = code & 3
+        move = jnp.where(state != 0, state, base).astype(jnp.int8)
+        # an UP/LEFT move stays in the F/E run while the extension bit
+        # says the gap continues
+        new_state = jnp.where(
+            (move == UP) & ((code & F_EXT) != 0), jnp.int32(UP),
+            jnp.where((move == LEFT) & ((code & E_EXT) != 0),
+                      jnp.int32(LEFT), jnp.int32(0)))
+        moves = moves.at[pos].set(move)
+        di = jnp.where((move == DIAGONAL) | (move == UP), 1, 0)
+        dj = jnp.where((move == DIAGONAL) | (move == LEFT), 1, 0)
+        return i - di, j - dj, new_state, pos + 1, moves
 
-    @jax.jit
-    def walk(p):
-        cap = wn + wm
+    def cond(carry):
+        i, j, state, pos, moves = carry
+        moved = (pos == 0) | (moves[pos - 1] != NONE)
+        return (i > 0) & (j > 0) & moved & (pos < cap)
 
-        def body(carry):
-            i, j, state, pos, moves = carry
-            li = i - 1
-            s_ = li // T
-            lin = (li % T) // R
-            r_ = li % R
-            t_ = lin + j - 1
-            code = p[s_, t_, 0, r_, lin // 128, lin % 128]
-            base = code & 3
-            move = jnp.where(state != 0, state, base).astype(jnp.int8)
-            # Gotoh state machine: an UP/LEFT move stays in the F/E run
-            # while the extension bit says the gap continues
-            new_state = jnp.where(
-                (move == UP) & ((code & F_EXT) != 0), jnp.int32(UP),
-                jnp.where((move == LEFT) & ((code & E_EXT) != 0),
-                          jnp.int32(LEFT), jnp.int32(0)))
-            moves = moves.at[pos].set(move)
-            di = jnp.where((move == DIAGONAL) | (move == UP), 1, 0)
-            dj = jnp.where((move == DIAGONAL) | (move == LEFT), 1, 0)
-            # pos always advances; a written NONE terminates via cond and
-            # is trimmed on the host
-            return i - di, j - dj, new_state, pos + 1, moves
+    moves0 = jnp.full((cap,), jnp.int8(NONE))
+    _, _, _, pos, moves = lax.while_loop(
+        cond, body, (jnp.int32(wn), jnp.int32(wm), jnp.int32(0),
+                     jnp.int32(0), moves0))
+    return pos, moves
 
-        def cond(carry):
-            i, j, state, pos, moves = carry
-            moved = (pos == 0) | (moves[pos - 1] != NONE)
-            return (i > 0) & (j > 0) & moved & (pos < cap)
 
-        moves0 = jnp.full((cap,), jnp.int8(NONE))
-        i, j, state, pos, moves = lax.while_loop(
-            cond, body, (jnp.int32(wn), jnp.int32(wm), jnp.int32(0),
-                         jnp.int32(0), moves0))
-        return pos, moves
-
-    pos, moves = walk(pdev)
+def _device_window_walk(sub_a, sub_b, wn, wm, scoring, sub=None):
+    """LOCAL scan refill with P capture, walked on the device."""
+    out = scan_fill(jnp.asarray(sub_a), jnp.asarray(sub_b), scoring=scoring,
+                    return_p=True, sub_table=_sub_table(sub))
+    pos, moves = _walk_diag(out.p_diag, wn=wn, wm=wm)
     npos = int(pos)
     mvs = np.asarray(moves)[:npos]
     if npos and mvs[-1] == NONE:
@@ -657,8 +544,8 @@ def walk_from_end(a: np.ndarray, b: np.ndarray, scoring: Scoring,
     O(end_i * end_j) memory — the caller gates on the window budget."""
     sub_a = np.asarray(a[:end_j])
     sub_b = np.asarray(b[:end_i])
-    if _use_stripe(end_j, end_i, scoring, sub=sub):
-        ca, cb = _stripe_window_walk(sub_a, sub_b, end_i, end_j, scoring,
+    if _device_resident():
+        ca, cb = _device_window_walk(sub_a, sub_b, end_i, end_j, scoring,
                                      sub=sub)
     else:
         ca, cb = _scan_window_walk(sub_a, sub_b, end_i, end_j, scoring,
@@ -698,24 +585,22 @@ def windowed(a: np.ndarray, b: np.ndarray, scoring: Scoring = Scoring(),
         return None
     wm = loc.end_j - loc.start_j + 1
     wn = loc.end_i - loc.start_i + 1
-    use_stripe = _use_stripe(wm, wn, scoring, sub=sub)
+    on_device = _device_resident()
     if max_window_cells is None:
-        # the stripe refill keeps P on-device (int32 in HBM) and walks it
-        # there, so the budget is HBM, not transfer: 2^30 cells = 4 GB of
-        # P comfortably fits a 16 GB chip alongside the double-buffered
-        # VMEM output chunks. (A 25632^2 whole-matrix window — random DNA
-        # at reference scoring is in the linear growth phase, so giant
-        # windows ARE the common case — walks in ~1.2 s here vs ~8.5 s
-        # through the Hirschberg fallback.)
-        max_window_cells = (1 << 30) if use_stripe else (1 << 26)
+        # on an accelerator the refill keeps P in device memory (int8,
+        # diagonal-major: about 2 bytes per cell of a square window) and
+        # walks it there, so the budget is device memory, not transfer:
+        # 2^30 cells fit an 80 GB card many times over. Random DNA at
+        # reference scoring is in the linear growth phase, so whole-matrix
+        # windows are the common case and must not fall to Hirschberg.
+        max_window_cells = (1 << 30) if on_device else (1 << 26)
     if wm * wn > max_window_cells:
         return hirschberg(a, b, scoring, loc=loc, alphabet=alphabet,
                           sub=sub)
     sub_a = np.asarray(a[loc.start_j - 1: loc.end_j])
     sub_b = np.asarray(b[loc.start_i - 1: loc.end_i])
-    if use_stripe:
-        ca, cb = _stripe_window_walk(sub_a, sub_b, wn, wm, scoring,
-                                     sub=sub)
+    if on_device:
+        ca, cb = _device_window_walk(sub_a, sub_b, wn, wm, scoring, sub=sub)
     else:
         ca, cb = _scan_window_walk(sub_a, sub_b, wn, wm, scoring, sub=sub)
     ra, rb = _render(ca, cb, alphabet)

@@ -5,8 +5,9 @@ The reference instruments every device load/store with shadow bytes
 (cuda_shared_instrumented_smithW.cu:171-353) to measure which data actually
 moves between memory spaces — the experiment that motivated its rolling
 wavefronts. Under XLA the equivalent facts come from (a) an analytic model
-of each execution plan's HBM<->VMEM traffic and (b) the compiled
-executable's own cost analysis (`jit(...).lower().compile().cost_analysis()`).
+of each execution plan's device-memory traffic and (b) the compiled
+executable's own cost and memory analysis
+(`jit(...).lower().compile().cost_analysis()` / `.memory_analysis()`).
 """
 
 from __future__ import annotations
@@ -21,9 +22,9 @@ from ..core.config import EngineConfig, Scoring
 class TrafficReport:
     plan: str
     cells: int
-    hbm_read_bytes: int          # analytic: bytes pulled HBM -> VMEM
-    hbm_write_bytes: int         # analytic: bytes pushed VMEM -> HBM
-    resident_bytes: int          # peak on-chip working set
+    hbm_read_bytes: int          # analytic: bytes read from device memory
+    hbm_write_bytes: int         # analytic: bytes written to device memory
+    resident_bytes: int          # peak register/shared working set
     bytes_per_cell: float
     notes: str
 
@@ -35,34 +36,25 @@ class TrafficReport:
                 f"{self.bytes_per_cell:.4f} B/cell — {self.notes}")
 
 
-def stripe_traffic(m: int, n: int, T: int = 16384, C: int = 256,
-                   traceback: bool = False,
-                   scoring: Scoring = Scoring()) -> TrafficReport:
-    """Analytic HBM traffic of the Pallas stripe plan.
-
-    The design point (the v6.1-vs-v6.3 lesson, SURVEY.md §3.3): per cell,
-    nothing round-trips to HBM. Inputs stream in once; all wavefront state
-    lives in VMEM scratch; only the optional predecessor stream goes out.
-    """
-    stripes = -(-n // T)
-    steps = stripes * (m + T - 1)
-    cells = m * n
-    ring = 4 * (steps // stripes + T + C + 256)
-    reads = 4 * (m + 2 * C) + 4 * stripes * T        # a_pad once + b tiles
-    writes = 8 * stripes * 4 + 4 * (T // 128) * 128 * stripes  # best + rc
-    if traceback:
-        writes += 4 * steps * T                       # P stream (int32)
-    resident = (4 * 10 * (T // 128) * 128) + 2 * ring
-    if scoring.is_affine:
-        resident += 4 * 3 * (T // 128) * 128 + ring
+def wavefront_traffic(m: int, n: int,
+                      scoring: Scoring = Scoring()) -> TrafficReport:
+    """Analytic device-memory traffic of the GPU wavefront kernel
+    (csrc/sw_gpu.cu): per cell nothing leaves the registers. Each stripe
+    of 32*R rows reads the query once and the row above it once (int32 H,
+    plus F when affine) and writes its own bottom row; the boundary ring
+    is small enough to stay in L2."""
+    from ..kernels.gpu_fill import geometry
+    g = geometry(m, n)
+    row = 4 * g.mpad * (2 if scoring.is_affine else 1)
+    reads = g.stripes * (g.mpad + row) + g.rows_pad
+    writes = g.stripes * row + 4 * g.rows_pad + 12 * g.stripes
+    per_lane = 4 * (5 * g.R + 12)         # h/e/best/col/code per row + state
     return TrafficReport(
-        plan=f"stripe(T={T},C={C},{'P' if traceback else 'score'})",
-        cells=cells,
-        hbm_read_bytes=reads, hbm_write_bytes=writes,
-        resident_bytes=resident,
-        bytes_per_cell=(reads + writes) / cells,
-        notes="wavefront state VMEM-resident; inputs stream once"
-              + ("; P stream dominates" if traceback else ""),
+        plan=f"wavefront(R={g.R},stripes={g.stripes})",
+        cells=m * n, hbm_read_bytes=reads, hbm_write_bytes=writes,
+        resident_bytes=per_lane * 32 * g.stripes,
+        bytes_per_cell=(reads + writes) / (m * n),
+        notes="H/E/F in registers; one boundary row per stripe in L2",
     )
 
 
@@ -97,7 +89,7 @@ def reference_v61_traffic(m: int, n: int) -> TrafficReport:
         hbm_write_bytes=bytes_moved // 2,
         resident_bytes=8 * (m + 1) * (n + 1),
         bytes_per_cell=bytes_moved / (m * n),
-        notes="the transfer pathology the TPU design eliminates",
+        notes="the transfer pathology the device-resident plans avoid",
     )
 
 
@@ -121,8 +113,8 @@ class MeasuredMemory:
     C18 shadow-profiler's question answered by XLA itself
     (cuda_shared_instrumented_smithW.cu:328-353 measures per-element
     access kinds to find what must cross the device boundary; here the
-    executable's argument/output sizes ARE the HBM-crossing bytes and
-    temp_size the on-chip working set)."""
+    executable's argument/output sizes ARE the boundary-crossing bytes
+    and temp_size the device working set)."""
 
     argument_bytes: int       # input buffers (stream in once)
     output_bytes: int         # result buffers (stream out once)
@@ -153,14 +145,12 @@ def measured_memory(fn, *example_args) -> Optional[MeasuredMemory]:
 
 
 def validate_model(m: int, n: int, scoring: Scoring = Scoring()) -> dict:
-    """Measure both plans' compiled memory profiles and compare them with
-    the analytic models. Returns {plan: (analytic TrafficReport,
+    """Measure the scan plan's compiled memory profiles and compare them
+    with the analytic model. Returns {plan: (analytic TrafficReport,
     MeasuredMemory)} for every plan that compiled — the model-vs-measured
-    agreement check the round-1 analytic models lacked."""
+    agreement check."""
     import jax.numpy as jnp
-    import numpy as np
     from ..core.encode import random_pair
-    from ..kernels import pallas_fill as pf
     from ..kernels.scan_fill import scan_fill
 
     a, b = random_pair(m, n, seed=0)
@@ -176,33 +166,15 @@ def validate_model(m: int, n: int, scoring: Scoring = Scoring()) -> dict:
         lambda x, y: scan_fill(x, y, scoring=scoring).max_score, aj, bj)
     if meas is not None:
         out["scan"] = (scan_traffic(m, n), meas)
-
-    T, R, CB = pf.choose_params(m, n, affine=scoring.is_affine)
-    C = pf.DEFAULT_CHUNK
-    ap, bt, _ = pf._build_inputs(a, b, T, C, R, CB)
-    interp = pf._interpret_default()
-
-    def stripe_fn(q, bt_):
-        return pf._stripe_call(q, bt_, scoring=scoring, T=T, R=R, C=C,
-                               CB=CB, m=m, n=n, return_p=False,
-                               interpret=interp,
-                               unroll=pf._auto_unroll(C, interp))[0]
-
-    meas = measured_memory(stripe_fn, jnp.asarray(ap), jnp.asarray(bt))
-    if meas is not None:
-        out["stripe"] = (stripe_traffic(m, n, T=T, C=C), meas)
     return out
 
 
 def report(m: int, n: int, config: EngineConfig = EngineConfig()) -> str:
     """Human-readable traffic comparison for a problem size."""
-    from ..kernels.pallas_fill import choose_stripe_rows
-    T = choose_stripe_rows(m, n)
     lines = [
         scan_traffic(m, n).summary(),
         scan_traffic(m, n, traceback=True).summary(),
-        stripe_traffic(m, n, T=T, traceback=False).summary(),
-        stripe_traffic(m, n, T=T, traceback=True).summary(),
+        wavefront_traffic(m, n).summary(),
         reference_v61_traffic(m, n).summary(),
     ]
     return "\n".join(lines)

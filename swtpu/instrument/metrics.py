@@ -80,7 +80,7 @@ class BenchRecord:
 def memory_footprint_bytes(m: int, n: int, traceback: bool = True,
                            affine: bool = False) -> int:
     """Estimated working-set bytes (the v1 startup print analog,
-    omp_smithW-v1-refinedOrig.cpp:138-142). The TPU plans never materialize
+    omp_smithW-v1-refinedOrig.cpp:138-142). The device plans never materialize
     H — only rolling wavefronts O(n) plus P when traceback is kept."""
     wavefronts = 4 * n * (5 if affine else 3)          # int32 rolling buffers
     p_matrix = (n + m - 1) * n if traceback else 0     # int8 diag-major P

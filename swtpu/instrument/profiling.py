@@ -1,4 +1,4 @@
-"""jax.profiler integration — the TPU-native form of the reference's
+"""jax.profiler integration — this framework's form of the reference's
 tracing story (SURVEY.md §5a): wall-clock phase timers exist in
 instrument.metrics; this module adds (a) real device traces viewable in
 TensorBoard/Perfetto and (b) a per-phase device-time report for the

@@ -335,7 +335,7 @@ def score_simd_batch(a_batch: np.ndarray, b_batch: np.ndarray,
     matching the oracle's row-major maxPos rule — or None when
     ineligible. OpenMP-parallel across pairs in csrc (one core here;
     scales with cores elsewhere). This is `dist.batch.batch_score`'s
-    host backend on non-TPU platforms: exact positions at multi-GCUPS
+    host backend on the CPU platform: exact positions at multi-GCUPS
     per core instead of the vmapped-scan rate."""
     from .core.config import Scoring
 

@@ -132,20 +132,6 @@ def test_checkpoint_affine_save_load_mid_gap(mesh, tmp_path):
     assert int(res.last_cell) == int(ref.H[-1, -1])
 
 
-def test_checkpoint_stripe_block_fill(mesh):
-    """The checkpointed pipeline exercises the Pallas stripe block fill
-    (interpret mode) — the TPU path, same `_make_block` as the live
-    pipeline."""
-    m, n, R = 8 * 16, 256, 128
-    a, b = random_pair(m, n, seed=9)
-    ref = oracle.fill(a, b)
-    rp = ResumablePipeline(mesh, m, n, block_rows=R,
-                           stages_per_segment=3, block_fill="stripe")
-    res = rp.run(a, b)
-    assert int(res.max_score) == ref.max_score
-    assert (int(res.max_i), int(res.max_j)) == ref.max_ij
-
-
 def test_checkpoint_substitution(mesh):
     """BLOSUM62 through the checkpointed pipeline (scoring hook is
     plan-universal)."""

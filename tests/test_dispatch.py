@@ -1,15 +1,18 @@
-"""Dispatch loop tests: the tuned table must change the kernel config that
-actually runs (the v8/Apollo closed loop), the pipeline tier must exist
-(v7's third tier), and live timed paths must feed Policy.observe."""
+"""Dispatch tests: one capability resolution drives every platform gate,
+the tuned table changes the plan that actually runs (the v8/Apollo closed
+loop), the pipeline tier is reached by a mesh, and live timed paths feed
+Policy.observe."""
 
 import json
+import types
 
 import numpy as np
 import pytest
 
 from swtpu import Scoring
 from swtpu.core import oracle
-from swtpu.core.encode import random_pair
+from swtpu.core.config import EngineConfig
+from swtpu.core.encode import random_batch, random_pair
 from swtpu.dispatch import plan as planmod
 from swtpu.dispatch.autotune import Policy
 
@@ -26,46 +29,44 @@ def _write_table(path, m, n, best):
         {"m": m, "n": n, "best": best, "all": []}]}))
 
 
-from swtpu.core.config import EngineConfig
-
-# these tests pin the DEVICE tuned-config dispatch; the score-only
-# SIMD host tier (which would intercept small traceback=False calls
-# before choose_exec) is disabled explicitly
+# these tests pin the DEVICE dispatch; the score-only SIMD host tier
+# (which would intercept small traceback=False calls before choose_exec)
+# is disabled explicitly
 _NO_SIMD = EngineConfig(host_simd_max_cells=0)
 
-TUNED = {"plan": "stripe", "T": 256, "R": 2, "CB": 1, "C": 128,
-         "unroll": 1, "s": 0.001, "gcups": 100.0}
+TUNED = {"plan": "scan", "s": 0.001, "gcups": 100.0}
 
 
-def test_choose_exec_returns_full_tuned_config(tmp_path, monkeypatch):
+def test_choose_exec_returns_full_tuned_config(tmp_path, fake_gpu,
+                                               monkeypatch):
+    """A measured table entry overrides the static tier: on a GPU where
+    the kernel would win by default, a tuned 'scan' entry decides."""
     f = tmp_path / "tuned.json"
     _write_table(f, 256, 256, TUNED)
     _fresh_policy(monkeypatch, f)
-    monkeypatch.setattr(planmod, "current_platform", lambda: "tpu")
     ep = planmod.choose_exec(256, 256)
-    assert ep.plan == "stripe" and ep.source == "tuned"
-    assert (ep.T, ep.R, ep.CB, ep.C, ep.unroll) == (256, 2, 1, 128, 1)
+    assert ep.plan == "scan" and ep.source == "tuned"
 
 
-def test_choose_exec_sanitizes_invalid_table_rows(tmp_path, monkeypatch):
+@pytest.mark.parametrize("row_plan", ["stripe", "wavefront", "bogus"])
+def test_choose_exec_sanitizes_invalid_table_rows(tmp_path, monkeypatch,
+                                                  row_plan):
+    """A table row naming a plan this platform cannot run (a removed
+    kernel, or the GPU kernel on the CPU platform) never reaches
+    execution: dispatch falls back to the static tiers."""
     f = tmp_path / "tuned.json"
-    _write_table(f, 256, 256, {"plan": "stripe", "T": 300, "R": 2, "CB": 1,
-                               "C": 130, "unroll": 7, "s": 1, "gcups": 1.0})
+    _write_table(f, 256, 256, dict(TUNED, plan=row_plan))
     _fresh_policy(monkeypatch, f)
-    monkeypatch.setattr(planmod, "current_platform", lambda: "tpu")
     ep = planmod.choose_exec(256, 256)
-    assert ep.T % (128 * ep.R) == 0          # rounded to a legal T
-    assert ep.C % 128 == 0                   # bad chunk replaced
-    assert ep.unroll is None                 # bad unroll re-derived
+    assert ep.plan == "scan" and ep.source == "threshold"
 
 
 def test_policy_far_gating(tmp_path, monkeypatch):
-    # ADVICE round 1: a tuned table with only large square entries must not
-    # capture tiny or extreme-aspect problems (nearest-cells matching did)
+    # a tuned table with only large square entries must not capture tiny
+    # or extreme-aspect problems (nearest-cells matching did)
     f = tmp_path / "tuned.json"
     _write_table(f, 25632, 25632, TUNED)
     _fresh_policy(monkeypatch, f)
-    monkeypatch.setattr(planmod, "current_platform", lambda: "tpu")
     pol = planmod.session_policy()
     assert pol.choose_near(64, 64) is None               # far in cells
     assert pol.choose_near(2000, 145002) is None         # far in aspect
@@ -79,110 +80,24 @@ def test_policy_far_gating(tmp_path, monkeypatch):
     assert planmod.choose_exec(64, 64).source == "threshold"
 
 
-def test_pipeline_tier_beyond_width_cap(monkeypatch):
-    from swtpu.kernels.pallas_fill import MAX_WIDTH
-    _fresh_policy(monkeypatch)
-    assert planmod.choose_exec(MAX_WIDTH + 128, 4096).plan == "pipeline"
-    # at or below the cap the single-chip tiers apply
-    assert planmod.choose_exec(1024, 1024).plan in ("scan", "stripe")
-
-
-def test_tuned_config_reaches_the_kernel(tmp_path, monkeypatch):
-    """End-to-end: align() must EXECUTE the tuned (T, R, CB, C, unroll) —
-    not just pick a plan name (round-1 judge finding #1)."""
-    import swtpu.engine.align as al
-    from swtpu.kernels import pallas_fill as pf
-
+def test_live_path_feeds_policy_observe(tmp_path, fake_gpu, monkeypatch):
+    """Warm align() calls on the kernel path must call Policy.observe (the
+    region->end() analog) with the executed plan."""
     f = tmp_path / "tuned.json"
-    _write_table(f, 256, 256, TUNED)
+    _write_table(f, 128, 128, {"plan": "wavefront", "s": 1, "gcups": 1.0})
     _fresh_policy(monkeypatch, f)
-    monkeypatch.setattr(planmod, "current_platform", lambda: "tpu")
-    # keep execution on CPU: force interpret mode despite the faked platform
-    monkeypatch.setattr(pf, "_interpret_default", lambda: True)
-    monkeypatch.setattr(al, "_score_cache", {})
-
-    seen = {}
-    real = pf.stripe_score_fn
-
-    def spy(m, n, scoring=Scoring(), **kw):
-        seen.update(kw)
-        return real(m, n, scoring, **kw)
-
-    monkeypatch.setattr(pf, "stripe_score_fn", spy)
-
-    a, b = random_pair(256, 256, seed=0)
-    res = al.align(a, b, config=_NO_SIMD, traceback=False)
-    assert (seen.get("T"), seen.get("R"), seen.get("CB"), seen.get("C"),
-            seen.get("unroll")) == (256, 2, 1, 128, 1)
-    ref = oracle.fill(a, b)
-    assert res.max_score == ref.max_score      # tuned config, same answer
-    assert (res.max_i, res.max_j) == ref.max_ij
-    assert res.last_cell == int(ref.H[-1, -1])
-
-
-def test_live_path_feeds_policy_observe(tmp_path, monkeypatch):
-    """Warm align() calls must call Policy.observe (the region->end()
-    analog) with the executed config."""
     import swtpu.engine.align as al
-    from swtpu.kernels import pallas_fill as pf
-
-    f = tmp_path / "tuned.json"
-    _write_table(f, 128, 128, {"plan": "stripe", "T": 128, "R": 1, "CB": 1,
-                               "C": 128, "unroll": 1, "s": 1, "gcups": 1.0})
-    _fresh_policy(monkeypatch, f)
-    monkeypatch.setattr(planmod, "current_platform", lambda: "tpu")
-    monkeypatch.setattr(pf, "_interpret_default", lambda: True)
-    monkeypatch.setattr(al, "_score_cache", {})
+    monkeypatch.setattr(al, "_warm_keys", set())
 
     a, b = random_pair(128, 128, seed=1)
-    al.align(a, b, config=_NO_SIMD, traceback=False)            # cold: compiles, no observe
+    r = al.align(a, b, config=_NO_SIMD, traceback=False)  # cold: no observe
+    assert r.plan == "wavefront"
     pol = planmod.session_policy()
     n_rows = len(pol.table["entries"][0]["all"])
-    al.align(a, b, config=_NO_SIMD, traceback=False)            # warm: observed
+    al.align(a, b, config=_NO_SIMD, traceback=False)      # warm: observed
     rows = pol.table["entries"][0]["all"]
     assert len(rows) == n_rows + 1
-    assert rows[-1]["plan"] == "stripe" and rows[-1]["T"] == 128
-    assert rows[-1]["s"] > 0
-
-
-def test_sweep_refuses_non_tpu(monkeypatch):
-    from swtpu.dispatch import autotune
-    with pytest.raises(RuntimeError, match="refusing to tune"):
-        autotune.sweep(sizes=(64,))
-
-
-def test_rect_sizes_in_sweep_grid(monkeypatch):
-    """Rectangular (m, n) entries are accepted by the sweep grid (shape-aware
-    tuning; the reference's 2000 x {...} grid, run-v0.sh)."""
-    from swtpu.dispatch import autotune
-    calls = []
-    monkeypatch.setattr(autotune, "_time_scan",
-                        lambda m, n, **kw: calls.append((m, n)) or 1.0)
-    monkeypatch.setattr(autotune, "_time_stripe",
-                        lambda *a, **kw: 0.5)
-    table = autotune.sweep(sizes=((64, 32), 16), verbose=False,
-                           allow_non_tpu=True)
-    assert calls[0] == (64, 32) and calls[1] == (16, 16)
-    e = table["entries"][0]
-    assert (e["m"], e["n"]) == (64, 32)
-
-
-def test_batch_stripe_band_rejected():
-    # ADVICE round 1 (medium): banded batch scores silently came back
-    # unbanded when plan='stripe' was forced
-    from swtpu.dist.batch import batch_score
-    a = np.zeros((2, 16), np.int8)
-    b = np.zeros((2, 16), np.int8)
-    with pytest.raises(ValueError, match="band"):
-        batch_score(a, b, band=3, plan="stripe")
-
-
-def test_resolve_params_r_only():
-    # ADVICE round 1: R given without T must not die on the internal
-    # T % (128*R) check when the cost model picked a smaller R
-    from swtpu.kernels.pallas_fill import _resolve_params
-    T, R, CB = _resolve_params(512, 512, None, 8, Scoring())
-    assert R == 8 and T % (128 * 8) == 0
+    assert rows[-1]["plan"] == "wavefront" and rows[-1]["s"] > 0
 
 
 AFF = Scoring(mode="affine", gap_open=-5, gap_extend=-1)
@@ -195,66 +110,33 @@ def _write_table_sig(path, rows):
         for m, n, sig, best in rows]}))
 
 
-def test_tuned_table_is_scoring_aware(tmp_path, monkeypatch):
+def test_tuned_table_is_scoring_aware(tmp_path, fake_gpu, monkeypatch):
     """An affine call must match only affine-sig entries; a linear-DNA
-    champion never lands on affine/BLOSUM calls (round-2 judge Weak #2)."""
+    winner never lands on affine/BLOSUM calls."""
     from swtpu.core.substitution import BLOSUM62
     from swtpu.dispatch.autotune import scoring_sig
 
-    lin_best = dict(TUNED)
-    aff_best = dict(TUNED, T=512, R=4)
-    sub_best = dict(TUNED, T=1024, R=8, CB=1)
     f = tmp_path / "tuned.json"
-    _write_table_sig(f, [(256, 256, "linear", lin_best),
-                         (256, 256, "affine", aff_best),
-                         (256, 256, "affine+sub21p", sub_best)])
+    _write_table_sig(f, [(256, 256, "linear", dict(TUNED, plan="scan")),
+                         (256, 256, "affine",
+                          dict(TUNED, plan="wavefront")),
+                         (256, 256, "affine+sub21",
+                          dict(TUNED, plan="scan"))])
     _fresh_policy(monkeypatch, f)
-    monkeypatch.setattr(planmod, "current_platform", lambda: "tpu")
 
     ep_lin = planmod.choose_exec(256, 256, scoring=Scoring())
-    assert (ep_lin.T, ep_lin.R) == (256, 2)
+    assert (ep_lin.plan, ep_lin.source) == ("scan", "tuned")
     ep_aff = planmod.choose_exec(256, 256, scoring=AFF)
-    assert (ep_aff.T, ep_aff.R) == (512, 4)
-    assert scoring_sig(AFF, BLOSUM62) == "affine+sub21p"
+    assert (ep_aff.plan, ep_aff.source) == ("wavefront", "tuned")
+    assert scoring_sig(AFF, BLOSUM62) == "affine+sub21"
     ep_sub = planmod.choose_exec(256, 256, scoring=AFF,
                                  substitution=BLOSUM62)
-    assert (ep_sub.T, ep_sub.R) == (1024, 8)
+    assert (ep_sub.plan, ep_sub.source) == ("scan", "tuned")
     # a sig with no entries falls back to thresholds, not a wrong sig
     ep_other = planmod.choose_exec(
         256, 256, scoring=Scoring(gap=-4), substitution=BLOSUM62[:20, :20])
     assert ep_other.source == "threshold"
-
-
-def test_affine_tuned_config_reaches_the_kernel(tmp_path, monkeypatch):
-    """align() with affine scoring must EXECUTE the affine-tuned config
-    (the per-signature analog of test_tuned_config_reaches_the_kernel)."""
-    import swtpu.engine.align as al
-    from swtpu.kernels import pallas_fill as pf
-
-    f = tmp_path / "tuned.json"
-    _write_table_sig(f, [
-        (256, 256, "linear", dict(TUNED)),
-        (256, 256, "affine", dict(TUNED, T=512, R=4, CB=1)),
-    ])
-    _fresh_policy(monkeypatch, f)
-    monkeypatch.setattr(planmod, "current_platform", lambda: "tpu")
-    monkeypatch.setattr(pf, "_interpret_default", lambda: True)
-    monkeypatch.setattr(al, "_score_cache", {})
-
-    seen = {}
-    real = pf.stripe_score_fn
-
-    def spy(m, n, scoring=Scoring(), **kw):
-        seen.update(kw)
-        return real(m, n, scoring, **kw)
-
-    monkeypatch.setattr(pf, "stripe_score_fn", spy)
-    a, b = random_pair(256, 256, seed=0)
-    res = al.align(a, b, scoring=AFF, config=_NO_SIMD,
-                   traceback=False)
-    assert (seen.get("T"), seen.get("R")) == (512, 4)
-    ref = oracle.fill_loop(a, b, AFF)
-    assert res.max_score == ref.max_score
+    assert ep_other.plan == "wavefront"
 
 
 def test_policy_merge_per_signature():
@@ -264,27 +146,26 @@ def test_policy_merge_per_signature():
     ]})
     pa.merge({"entries": [
         {"m": 64, "n": 64, "sig": "linear",
-         "best": dict(TUNED, gcups=80.0, T=512), "all": []},
+         "best": dict(TUNED, gcups=80.0, plan="wavefront"), "all": []},
         {"m": 64, "n": 64, "sig": "affine",
-         "best": dict(TUNED, gcups=10.0, T=1024), "all": []},
+         "best": dict(TUNED, gcups=10.0), "all": []},
     ]})
     ents = {(e["m"], e["n"], e["sig"]): e for e in pa.table["entries"]}
     assert ents[(64, 64, "linear")]["best"]["gcups"] == 80.0   # better wins
-    assert ents[(64, 64, "linear")]["best"]["T"] == 512
-    assert ents[(64, 64, "affine")]["best"]["T"] == 1024       # new sig added
+    assert ents[(64, 64, "linear")]["best"]["plan"] == "wavefront"
+    assert ents[(64, 64, "affine")]["best"]["gcups"] == 10.0   # sig added
     # a worse incoming best never replaces
     pa.merge({"entries": [{"m": 64, "n": 64, "sig": "linear",
                            "best": dict(TUNED, gcups=1.0), "all": []}]})
     assert ents[(64, 64, "linear")]["best"]["gcups"] == 80.0
 
 
-def test_autopersist_across_processes(tmp_path, monkeypatch):
+def test_autopersist_across_processes(tmp_path, fake_gpu, monkeypatch):
     """Two consecutive 'processes': the first observes and persists at
-    exit; the second loads the persisted table and benefits (round-2
-    judge Missing #3 / item 7)."""
+    exit; the second loads the persisted table and benefits."""
     path = tmp_path / "persist.json"
     monkeypatch.setenv("SWTPU_AUTOTUNE_PERSIST", str(path))
-    # block the repo-root default-table fallback: an empty explicit table
+    # block the default-table fallback: an empty explicit table
     empty = tmp_path / "empty.json"
     empty.write_text('{"entries": []}')
 
@@ -292,8 +173,7 @@ def test_autopersist_across_processes(tmp_path, monkeypatch):
     # (atexit registration is pinned separately)
     _fresh_policy(monkeypatch, empty)
     monkeypatch.setattr(planmod, "_persist_state", {"registered": False})
-    planmod.observe(512, 512, "stripe", 0.001, T=512, R=4, C=128,
-                    unroll=8, sig="linear")
+    planmod.observe(512, 512, "scan", 0.001, sig="linear")
     assert planmod._persist_state["registered"]     # atexit hook armed
     assert planmod.persist_session_policy() == str(path)
     assert path.exists()
@@ -301,40 +181,32 @@ def test_autopersist_across_processes(tmp_path, monkeypatch):
     # process 2: fresh cache, the persisted observation drives dispatch
     _fresh_policy(monkeypatch)
     monkeypatch.setenv("SWTPU_TUNED_TABLE", str(path))
-    monkeypatch.setattr(planmod, "current_platform", lambda: "tpu")
     ep = planmod.choose_exec(512, 512)
-    assert ep.source == "tuned" and (ep.T, ep.R) == (512, 4)
+    assert ep.source == "tuned" and ep.plan == "scan"
 
     # process 2 observes something better and persists: merge keeps max
-    planmod.observe(512, 512, "stripe", 0.0001, T=1024, R=8, C=128,
-                    unroll=8, sig="linear")
+    planmod.observe(512, 512, "wavefront", 0.0001, sig="linear")
     planmod.persist_session_policy()
-    import json as _json
-    saved = _json.loads(path.read_text())
+    saved = json.loads(path.read_text())
     ent = saved["entries"][0]
-    assert ent["best"]["T"] == 1024
+    assert ent["best"]["plan"] == "wavefront"
     assert len(ent["all"]) == 2                     # histories concatenated
 
 
-def test_observe_normalizes_fetch_floor(tmp_path, monkeypatch):
+def test_observe_normalizes_fetch_floor(tmp_path, fake_gpu, monkeypatch):
     """The warm fast path's observe() must feed dispatch-amortized time:
-    single-dispatch wall time minus the measured dispatch+fetch floor
-    (round-2 judge Weak #6 — mixed-methodology table pollution)."""
+    single-dispatch wall time minus the measured dispatch+fetch floor."""
     import swtpu.engine.align as al
-    from swtpu.kernels import pallas_fill as pf
 
     f = tmp_path / "tuned.json"
-    _write_table(f, 128, 128, {"plan": "stripe", "T": 128, "R": 1, "CB": 1,
-                               "C": 128, "unroll": 1, "s": 1, "gcups": 1.0})
+    _write_table(f, 128, 128, {"plan": "wavefront", "s": 1, "gcups": 1.0})
     _fresh_policy(monkeypatch, f)
-    monkeypatch.setattr(planmod, "current_platform", lambda: "tpu")
-    monkeypatch.setattr(pf, "_interpret_default", lambda: True)
-    monkeypatch.setattr(al, "_score_cache", {})
+    monkeypatch.setattr(al, "_warm_keys", set())
     monkeypatch.setattr(al, "_floor_cache", {"floor": 10.0})  # huge floor
 
     a, b = random_pair(128, 128, seed=1)
     al.align(a, b, config=_NO_SIMD, traceback=False)            # cold
-    al.align(a, b, config=_NO_SIMD, traceback=False)            # warm: observes
+    al.align(a, b, config=_NO_SIMD, traceback=False)            # warm
     pol = planmod.session_policy()
     rows = [r for e in pol.table["entries"] for r in e["all"]
             if r.get("kind") == "observed"]
@@ -344,57 +216,24 @@ def test_observe_normalizes_fetch_floor(tmp_path, monkeypatch):
     assert rows[-1]["s"] < 1.0
 
 
-def test_profit_gated_pipeline_tier(monkeypatch):
-    """The pipeline tier must fire BELOW the width cap when the cost
-    model projects a mesh win (the v7 benefit gate), and never for sizes
-    where a single max-T stripe already wins (round-2 judge Missing #2)."""
-    from swtpu.kernels.pallas_fill import MAX_WIDTH
-
-    _fresh_policy(monkeypatch)
-    monkeypatch.setattr(planmod, "current_platform", lambda: "tpu")
-    monkeypatch.setattr(planmod, "local_tpu_devices", lambda: 8)
-    ep = planmod.choose_exec(524288, 524288)
-    assert 524288 <= MAX_WIDTH
-    assert ep.plan == "pipeline" and ep.source == "projected"
-    # a single stripe amortizes the whole wavefront at headline sizes:
-    # the mesh projection loses and dispatch stays single-chip
-    assert planmod.choose_exec(25632, 25632).plan != "pipeline"
-    # one chip: no mesh, no pipeline below the cap
-    monkeypatch.setattr(planmod, "local_tpu_devices", lambda: 1)
-    assert planmod.choose_exec(524288, 524288).plan != "pipeline"
-
-
-def test_pipeline_projection_monotone_and_documented():
-    sp_big, br_big = planmod.pipeline_projection(1 << 20, 1 << 20, 8)
-    sp_small, _ = planmod.pipeline_projection(25632, 25632, 8)
-    assert sp_big > planmod.PIPE_MIN_SPEEDUP > sp_small
-    assert br_big >= 16384          # mega-matrices want big blocks
-    assert planmod.pipeline_projection(1 << 20, 1 << 20, 1) == (0.0, 0)
-
-
-def test_host_simd_crossover_is_derived(tmp_path, monkeypatch):
+def test_host_simd_crossover_is_derived(monkeypatch):
     """host_simd_max_cells=None derives the crossover from MEASURED
-    quantities (VERDICT r4 #8): on TPU, this host's probed per-core SIMD
-    rate x the device floor (committed fit record when present,
-    documented fallback otherwise); on deviceless hosts the fallthrough
-    is the vmapped scan, so the cap is the SIMD tier's own shape ceiling.
-    An explicit value pins it; an unavailable tier derives 0 (routing
-    skips SIMD entirely)."""
-    import json
-
-    from swtpu.core import config as cfgmod
+    quantities: on an accelerator, this host's probed per-core SIMD rate x
+    the device's measured dispatch+fetch floor — never the SIMD tier's
+    shape cap; on the CPU platform the fallthrough is the scan on the
+    same cores, so the cap is the SIMD tier's own shape ceiling. An
+    explicit value pins it; an unavailable tier derives 0."""
+    import swtpu.engine.align as al
     from swtpu import runtime_native as rn
+    from swtpu.core import config as cfgmod
 
-    def fresh_cap(rate, record=None, platform="tpu"):
+    def fresh_cap(rate, floor_s=None, platform="gpu"):
         cfgmod._simd_cap_cache["value"] = None
         monkeypatch.setattr(rn, "measured_simd_gcups", lambda: rate)
-        monkeypatch.setattr(planmod, "current_platform",
-                            lambda: platform)
-        path = tmp_path / "absent.json"
-        if record is not None:
-            path = tmp_path / "floor.json"
-            path.write_text(json.dumps(record))
-        monkeypatch.setenv("SWTPU_DEVICE_FLOOR_RECORD", str(path))
+        cap = planmod.Capability(platform, "dev", 1, platform == "gpu")
+        monkeypatch.setattr(planmod, "capability", lambda: cap)
+        monkeypatch.setattr(al, "_floor_cache",
+                            {} if floor_s is None else {"floor": floor_s})
         try:
             return cfgmod.derived_host_simd_max_cells()
         finally:
@@ -404,70 +243,215 @@ def test_host_simd_crossover_is_derived(tmp_path, monkeypatch):
         # explicit value wins, no probe
         assert EngineConfig(host_simd_max_cells=123).simd_cells_cap() == 123
         assert _NO_SIMD.simd_cells_cap() == 0
-        # measured rate x committed floor record
-        assert fresh_cap(8.0, {"floor_s": 0.005}) == 40_000_000
-        # no record -> the documented fallback floor
-        assert fresh_cap(10.0) == int(10e9 * cfgmod.DEVICE_FLOOR_FALLBACK_S)
-        # malformed record -> fallback, not a crash
-        assert fresh_cap(10.0, {"oops": 1}) \
-            == int(10e9 * cfgmod.DEVICE_FLOOR_FALLBACK_S)
-        # deviceless host: no device floor to cross over against — the
-        # cap is the tier's own eligibility ceiling, and a committed
-        # TPU floor record must NOT shrink it (review r5 finding)
-        assert fresh_cap(2.0, {"floor_s": 0.0002}, platform="cpu") \
+        # measured rate x measured floor
+        assert fresh_cap(8.0, 0.005) == 40_000_000
+        assert fresh_cap(6.0, 40e-6) == 240_000
+        # the floor is measured in-process when not cached yet
+        got = fresh_cap(5.0)
+        assert 0 <= got < cfgmod.SIMD_SHAPE_LIMIT_CELLS
+        # CPU platform: the tier's own eligibility ceiling
+        assert fresh_cap(2.0, 0.0002, platform="cpu") \
             == cfgmod.SIMD_SHAPE_LIMIT_CELLS
         # SIMD tier unavailable -> 0 (tier disabled)
         assert fresh_cap(None) == 0
         # the default config routes through the derivation (int either way)
         assert isinstance(EngineConfig().simd_cells_cap(), int)
     finally:
-        # never leak a cap derived under monkeypatched probes/records
+        # never leak a cap derived under monkeypatched probes
         cfgmod._simd_cap_cache["value"] = None
 
 
-def test_pipe_stage_overhead_loads_fit_record(tmp_path, monkeypatch):
-    """The profit gate runs on the MEASURED per-stage overhead when the
-    committed fit record exists (VERDICT r4 #2): the loader prefers the
-    record over the fallback, rejects malformed records, and the gate
-    flips with the constant — a big-enough overhead kills the projected
-    win that fires at the fallback value."""
-    import json
+# --- capability resolution -------------------------------------------------
 
-    def reload_with(path):
-        planmod._pipe_overhead_cache.update(
-            {"loaded": False, "value": None, "source": "fallback"})
-        if path is None:
-            monkeypatch.setenv("SWTPU_PIPE_OVERHEAD_RECORD",
-                               str(tmp_path / "absent.json"))
-        else:
-            monkeypatch.setenv("SWTPU_PIPE_OVERHEAD_RECORD", str(path))
-        return planmod.pipe_stage_overhead()
 
-    try:
-        # no record -> documented fallback
-        assert reload_with(None) == planmod.PIPE_STAGE_OVERHEAD_FALLBACK
-        # committed record wins
-        rec = tmp_path / "fit.json"
-        rec.write_text(json.dumps(
-            {"fitted_overhead_model_cycles": 12345.0, "fit_rows": []}))
-        assert reload_with(rec) == 12345.0
-        # malformed record -> fallback, not a crash
-        bad = tmp_path / "bad.json"
-        bad.write_text(json.dumps({"oops": 1}))
-        assert reload_with(bad) == planmod.PIPE_STAGE_OVERHEAD_FALLBACK
-        # the gate actually consumes the constant: a projection that wins
-        # at the fallback overhead loses when the record says each stage
-        # costs as much as a whole block fill
-        m = n = 1 << 20
-        assert reload_with(None) == planmod.PIPE_STAGE_OVERHEAD_FALLBACK
-        sp_fallback, _ = planmod.pipeline_projection(m, n, 8)
-        assert sp_fallback > planmod.PIPE_MIN_SPEEDUP
-        huge = tmp_path / "huge.json"
-        huge.write_text(json.dumps(
-            {"fitted_overhead_model_cycles": 1e12}))
-        reload_with(huge)
-        sp_huge, _ = planmod.pipeline_projection(m, n, 8)
-        assert sp_huge < planmod.PIPE_MIN_SPEEDUP
-    finally:
-        planmod._pipe_overhead_cache.update(
-            {"loaded": False, "value": None, "source": "fallback"})
+def _device(platform="gpu", cc="9.0", kind="NVIDIA H100 80GB HBM3"):
+    return types.SimpleNamespace(platform=platform, compute_capability=cc,
+                                 device_kind=kind, id=0)
+
+
+def test_capability_on_cpu_platform():
+    cap = planmod.capability()
+    assert cap.platform == "cpu" and not cap.gpu_kernel
+    assert cap.device_count >= 1
+
+
+@pytest.mark.parametrize("cc,built", [("9.0", True), ("9.0a", True),
+                                      ("8.0", False), ("", False)])
+def test_resolve_capability_gpu(monkeypatch, cc, built):
+    """Only a Hopper card (compute capability 9.x) can run the kernel;
+    resolving the capability builds nothing on any card (the build waits
+    for the kernel's first call)."""
+    from swtpu.kernels import gpu_fill
+    seen = []
+    monkeypatch.setattr(gpu_fill, "ensure_registered",
+                        lambda: seen.append(1))
+    monkeypatch.setattr(gpu_fill, "build", lambda: seen.append(1))
+    monkeypatch.setattr(planmod.jax, "devices",
+                        lambda platform=None: [_device(cc=cc)] * 2)
+    cap = planmod.resolve_capability(_device(cc=cc))
+    assert cap.gpu_kernel is built and not seen
+    assert (cap.platform, cap.device_count) == ("gpu", 2)
+    assert cap.device_kind == "NVIDIA H100 80GB HBM3"
+
+
+def test_capability_needs_kernel_source(tmp_path, monkeypatch):
+    """Without csrc/sw_gpu.cu a Hopper card resolves to the scan."""
+    from swtpu.kernels import gpu_fill
+    monkeypatch.setattr(gpu_fill, "SOURCE", tmp_path / "absent.cu")
+    monkeypatch.setattr(planmod.jax, "devices",
+                        lambda platform=None: [_device()])
+    assert not planmod.resolve_capability(_device()).gpu_kernel
+
+
+def _no_nvcc(monkeypatch, tmp_path):
+    """A Hopper capability on a host where the kernel cannot be built."""
+    from swtpu.kernels import gpu_fill
+    monkeypatch.setattr(gpu_fill, "_state",
+                        {"lib": None, "registered": False, "build_s": None})
+    monkeypatch.setattr(gpu_fill, "_nvcc", lambda: None)
+    monkeypatch.setattr(gpu_fill, "library_path",
+                        lambda: tmp_path / "absent.so")
+    gpu_fill._score_fn.cache_clear()
+    monkeypatch.setattr(planmod.jax, "devices",
+                        lambda platform=None: [_device()])
+    cap = planmod.resolve_capability(_device())
+    monkeypatch.setattr(planmod, "capability", lambda: cap)
+    return cap
+
+
+def test_missing_kernel_library_raises_on_gpu(tmp_path, monkeypatch):
+    """On a GPU platform a kernel that cannot be built raises at its first
+    call — it never falls back to the scan. Resolving the capability
+    alone does not try the build."""
+    import swtpu
+    from swtpu.kernels import gpu_fill
+    cap = _no_nvcc(monkeypatch, tmp_path)
+    assert cap.gpu_kernel
+    with pytest.raises(gpu_fill.KernelBuildError, match="nvcc"):
+        gpu_fill.score_fn(300, 200)
+    a, b = random_pair(300, 200, seed=0)
+    with pytest.raises(gpu_fill.KernelBuildError, match="nvcc"):
+        swtpu.align(a, b, config=_NO_SIMD, traceback=False)
+
+
+def test_gpu_without_nvcc_still_runs_scan_routes(tmp_path, monkeypatch):
+    """Routes that never run the kernel — batch_score, search, traceback
+    refills, the host tier — work on a Hopper host that has no nvcc."""
+    import swtpu
+    from swtpu.dist.database import pad_queries
+    _no_nvcc(monkeypatch, tmp_path)
+    aa, bb = random_batch(4, 40, 50, seed=2)
+    hits = swtpu.batch_score(aa, bb)
+    for k in range(4):
+        assert int(hits.scores[k]) == oracle.fill(aa[k], bb[k]).max_score
+    ref = np.random.default_rng(5).integers(0, 4, 700).astype(np.int8)
+    found = swtpu.search(pad_queries([ref[300:330].copy()], 30), ref,
+                         window=256)
+    assert (int(found.scores[0]), int(found.ref_pos[0])) == (90, 329)
+    a, b = random_pair(40, 30, seed=6)
+    assert swtpu.align(a, b).max_score == oracle.fill(a, b).max_score
+
+
+def test_failed_compile_raises(tmp_path, monkeypatch):
+    """A compile error surfaces as KernelBuildError with nvcc's stderr."""
+    from swtpu.kernels import gpu_fill
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: bad kernel' >&2\nexit 3\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(gpu_fill, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(gpu_fill, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(gpu_fill, "library_path",
+                        lambda: tmp_path / "build" / "lib.so")
+    with pytest.raises(gpu_fill.KernelBuildError, match="bad kernel"):
+        gpu_fill.build()
+    assert not (tmp_path / "build" / "lib.so").exists()
+
+
+@pytest.mark.parametrize("m,n,cfg,plan", [
+    (1024, 1024, EngineConfig(), "wavefront"),
+    (25632, 25632, EngineConfig(), "wavefront"),
+    (145002, 2000, EngineConfig(), "wavefront"),
+    (1024, 1024, EngineConfig(band=16), "scan"),
+    (32, 32, EngineConfig(), "host"),
+])
+def test_choose_exec_on_gpu(fake_gpu, monkeypatch, m, n, cfg, plan):
+    _fresh_policy(monkeypatch)
+    from swtpu.runtime_native import available
+    if plan == "host" and not available():
+        plan = "wavefront"
+    assert planmod.choose_exec(m, n, cfg).plan == plan
+
+
+@pytest.mark.parametrize("m,n,cfg", [(1024, 1024, EngineConfig()),
+                                     (25632, 25632, EngineConfig()),
+                                     (1024, 1024, EngineConfig(band=16))])
+def test_choose_exec_on_cpu(monkeypatch, m, n, cfg):
+    _fresh_policy(monkeypatch)
+    assert planmod.choose_exec(m, n, cfg).plan == "scan"
+
+
+@pytest.mark.parametrize("plan", [None, "auto", "host", "scan", "wavefront",
+                                  "pipeline"])
+def test_check_plan_accepts_known(plan):
+    planmod.check_plan(plan)
+
+
+def test_stripe_plan_names_its_replacement():
+    import swtpu
+    with pytest.raises(ValueError, match="wavefront"):
+        planmod.check_plan("stripe")
+    with pytest.raises(ValueError, match="wavefront"):
+        swtpu.align("ACGT", "ACGT", plan="stripe")
+    with pytest.raises(ValueError, match="wavefront"):
+        swtpu.score("ACGT", "ACGT", plan="stripe")
+    with pytest.raises(ValueError, match="unknown plan"):
+        planmod.check_plan("turbo")
+
+
+def test_wavefront_forced_without_gpu_raises():
+    import swtpu
+    a, b = random_pair(200, 200, seed=0)
+    with pytest.raises(ValueError, match="Hopper"):
+        swtpu.align(a, b, traceback=False, plan="wavefront")
+
+
+@pytest.mark.parametrize("traceback", [False, True])
+def test_align_on_gpu_routes_score_only_to_kernel(fake_gpu, traceback):
+    """Score-only requests above the host tiers run the kernel; traceback
+    requests take the scan (the kernel is score-only)."""
+    import swtpu
+    a, b = random_pair(300, 200, seed=3)
+    r = swtpu.align(a, b, config=_NO_SIMD, traceback=traceback)
+    ref = oracle.fill(a, b)
+    assert r.plan == ("scan" if traceback else "wavefront")
+    assert fake_gpu == ([] if traceback else [(300, 200)])
+    assert (r.max_score, (r.max_i, r.max_j)) == (ref.max_score, ref.max_ij)
+    assert r.last_cell == int(ref.H[-1, -1])
+
+
+def test_mesh_routes_align_to_pipeline():
+    """An explicit mesh asks for the multi-device pipeline."""
+    import jax
+    from jax.sharding import Mesh
+
+    import swtpu
+    mesh = Mesh(np.array(jax.devices()[:4]), ("seq",))
+    a, b = random_pair(256, 128, seed=4)
+    r = swtpu.align(a, b, traceback=False, mesh=mesh)
+    ref = oracle.fill(a, b)
+    assert r.plan == "pipeline"
+    assert (r.max_score, (r.max_i, r.max_j)) == (ref.max_score, ref.max_ij)
+    assert r.last_cell == int(ref.H[-1, -1])
+
+
+@pytest.mark.parametrize("m,n,D,want", [
+    (65536, 16384, 4, 8192),
+    (1 << 20, 1 << 20, 8, 1 << 17),
+    (256, 128, 4, 128),
+    (1000, 50, 4, 50),
+    (4096, 4096, 1, 4096),
+])
+def test_pipeline_block_rows(m, n, D, want):
+    """Block height minimizing (n/br + D - 1)(br + m/D) wavefront steps,
+    as a power of two within [128, n]."""
+    assert planmod.pipeline_block_rows(m, n, D) == want

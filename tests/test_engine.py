@@ -72,9 +72,10 @@ def test_score_transposes_thin_problems():
     assert r1 == r2
 
 
-def test_score_fast_path_matches_general():
-    """The device-resident score-only fast path must agree with the full
-    stripe fill on score, position, and last_cell."""
+def test_score_fast_path_matches_general(fake_gpu):
+    """The device-resident score-only fast path (the GPU kernel's wrapper
+    route, the kernel stood in for by the scan) must agree with the oracle
+    on score, position, and last_cell."""
     import numpy as np
     import swtpu
     from swtpu.core import oracle
@@ -82,16 +83,18 @@ def test_score_fast_path_matches_general():
 
     a, b = random_pair(150, 400, seed=17)
     ref = oracle.fill(a, b)
-    r = swtpu.align(a, b, traceback=False, plan="stripe")
+    r = swtpu.align(a, b, traceback=False, plan="wavefront")
+    assert r.plan == "wavefront" and fake_gpu == [(150, 400)]
     assert r.max_score == ref.max_score
     assert (r.max_i, r.max_j) == ref.max_ij
     assert r.last_cell == int(ref.H[-1, -1])
 
 
-def test_affine_traceback_stripe_plan():
-    """align() with affine gaps + traceback through the stripe plan's
-    P capture must reproduce the Gotoh oracle's score and positions and
-    yield an alignment that re-scores exactly under affine rules."""
+def test_affine_traceback_stripe_plan(fake_gpu):
+    """align() with affine gaps + traceback with the kernel plan forced:
+    the score-only kernel hands traceback to the scan's P capture, which
+    must reproduce the Gotoh oracle's score and positions and yield an
+    alignment that re-scores exactly under affine rules."""
     import numpy as np
     import swtpu
     from swtpu.core import oracle
@@ -101,7 +104,8 @@ def test_affine_traceback_stripe_plan():
     a, b = random_pair(120, 300, seed=23)
     b[40:120] = a[10:90]
     ref = oracle.fill_loop(a, b, sc)
-    r = swtpu.align(a, b, scoring=sc, plan="stripe")
+    r = swtpu.align(a, b, scoring=sc, plan="wavefront")
+    assert r.plan == "scan"
     assert r.max_score == ref.max_score
     assert (r.max_i, r.max_j) == ref.max_ij
     # affine re-score of the alignment string

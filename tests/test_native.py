@@ -317,7 +317,7 @@ def test_simd_pos_exact_first_occurrence():
 
 
 def test_batch_score_host_simd_route():
-    """On non-TPU platforms batch_score's auto plan takes the host SIMD
+    """On the CPU platform batch_score's auto plan takes the host SIMD
     batch backend (exact scores AND positions); the vmapped scan agrees
     bit-for-bit; forced plan='host-simd' works; tracer contexts skip it
     (the sharded scorer keeps compiling)."""
@@ -380,27 +380,6 @@ def test_forced_host_simd_fails_loudly():
     with pytest.raises(ValueError, match="ineligible"):
         make_searcher(None, qlen=152, shard_len=4096, scoring=bad,
                       plan="host-simd")
-
-
-def test_pairs_cache_lru_cap():
-    """The pair-kernel builder memo evicts oldest-first at the cap instead
-    of growing without bound (ADVICE r4)."""
-    from swtpu.dist import batch as batch_mod
-
-    saved = dict(batch_mod._pairs_cache)
-    batch_mod._pairs_cache.clear()
-    try:
-        for k in range(batch_mod._PAIRS_CACHE_CAP + 4):
-            batch_mod._pairs_cached(("t", k), lambda k=k: k)
-        assert len(batch_mod._pairs_cache) == batch_mod._PAIRS_CACHE_CAP
-        assert ("t", 0) not in batch_mod._pairs_cache
-        # LRU touch: re-using an entry protects it from the next eviction
-        batch_mod._pairs_cached(("t", 4), lambda: None)
-        batch_mod._pairs_cached(("t", 999), lambda: None)
-        assert ("t", 4) in batch_mod._pairs_cache
-    finally:
-        batch_mod._pairs_cache.clear()
-        batch_mod._pairs_cache.update(saved)
 
 
 def test_align_score_only_routes_simd_with_last_cell():

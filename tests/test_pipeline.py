@@ -47,8 +47,8 @@ def test_pipeline_tie_first_occurrence(mesh):
 
 
 def test_pipeline_stripe_block_fill_matches_oracle():
-    """Force the Pallas stripe block fill (interpret mode) through the
-    multi-device pipeline and compare with the single-matrix oracle."""
+    """Column-stripe scan block fills with 128-row blocks through the
+    4-device pipeline, compared with the single-matrix oracle."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -61,7 +61,7 @@ def test_pipeline_stripe_block_fill_matches_oracle():
     mesh = Mesh(np.array(devs), ("seq",))
     m, n = 4 * 24, 256                # 2 row blocks of 128
     a, b = random_pair(m, n, seed=33)
-    fn = make_pipeline(mesh, m, n, block_rows=128, block_fill="stripe")
+    fn = make_pipeline(mesh, m, n, block_rows=128)
     res = fn(jnp.asarray(a), jnp.asarray(b))
     ref = oracle.fill(a, b)
     assert int(res.max_score) == ref.max_score
@@ -125,8 +125,8 @@ def test_pipeline_batch_bubble_filling():
 
 
 def test_pipeline_affine_stripe_blocks():
-    """Affine pipeline with Pallas block fills (interpret mode): E/F halos
-    through the stripe kernel must match the Gotoh oracle."""
+    """Affine pipeline over 4 devices with 128-row scan blocks: E/F halos
+    across devices must match the Gotoh oracle."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -142,8 +142,7 @@ def test_pipeline_affine_stripe_blocks():
     m, n = 4 * 24, 256
     a, b = random_pair(m, n, seed=111)
     b[30:80] = a[20:70]
-    fn = make_pipeline(mesh, m, n, block_rows=128, scoring=sc,
-                       block_fill="stripe")
+    fn = make_pipeline(mesh, m, n, block_rows=128, scoring=sc)
     res = fn(jnp.asarray(a), jnp.asarray(b))
     ref = oracle.fill_loop(a, b, sc)
     assert int(res.max_score) == ref.max_score
@@ -380,23 +379,29 @@ def test_pipeline_substitution_affine_traceback(mesh):
                             PROTEIN_ALPHABET) == ref.max_score
 
 
-def test_pipeline_substitution_stripe_blocks(mesh):
-    """The per-stage PROFILE stripe kernel (interpret mode) through the
-    pipeline — the TPU path for protein mega-matrices."""
+@pytest.mark.parametrize("mode", ["linear", "affine"])
+def test_pipeline_substitution_stripe_blocks(mode):
+    """BLOSUM62 pipeline stages on scan blocks over 4 devices, linear and
+    affine gaps, against the oracle."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
     from swtpu import Scoring
     from swtpu.core.substitution import BLOSUM62
     from swtpu.dist.pipeline import make_pipeline
-    import jax.numpy as jnp
 
+    mesh4 = Mesh(np.array(jax.devices()[:4]), ("seq",))
     rng = np.random.default_rng(31)
-    m, n = 8 * 16, 256
+    m, n = 4 * 32, 256
     a = rng.integers(0, 20, m).astype(np.int8)
     b = rng.integers(0, 20, n).astype(np.int8)
     b[30:80] = np.concatenate([a[10:40], a[60:80]])
-    sc = Scoring(gap=-4)
+    sc = (Scoring(mode="affine", gap_open=-11, gap_extend=-1)
+          if mode == "affine" else Scoring(gap=-4))
     ref = oracle.fill(a, b, sc, sub=BLOSUM62)
-    fn = make_pipeline(mesh, m, n, block_rows=128, scoring=sc,
-                       block_fill="stripe", substitution=BLOSUM62)
+    fn = make_pipeline(mesh4, m, n, block_rows=128, scoring=sc,
+                       substitution=BLOSUM62)
     res = fn(jnp.asarray(a), jnp.asarray(b))
     assert int(res.max_score) == ref.max_score
     assert (int(res.max_i), int(res.max_j)) == ref.max_ij
@@ -460,3 +465,28 @@ def test_batch_score_routes_pipeline(mesh):
     for p in range(Pp):
         ref = oracle.fill(a[p], b[p])
         assert int(hits.scores[p]) == ref.max_score, p
+
+
+def test_pipeline_align_reuses_its_program(mesh, monkeypatch):
+    """Repeated same-shape pipeline calls (align(mesh=...) in a loop) reuse
+    one compiled pipeline; a new shape or scoring builds another; host
+    inputs come back with the result replicated on every mesh device."""
+    import swtpu.dist.pipeline as pl
+    from swtpu.core.config import Scoring
+
+    builds = []
+    real = pl.make_pipeline
+    monkeypatch.setattr(pl, "make_pipeline",
+                        lambda *a, **k: (builds.append(1), real(*a, **k))[1])
+    pl._pipeline_memo.clear()
+    a, b = random_pair(96, 64, seed=41)
+    ref = oracle.fill(a, b)
+    for _ in range(3):
+        res = pipeline_align(a, b, mesh, block_rows=16)
+        assert (int(res.max_score), (int(res.max_i), int(res.max_j))) == \
+            (ref.max_score, ref.max_ij)
+    assert len(builds) == 1
+    assert res.max_score.sharding.device_set == set(mesh.devices.flat)
+    pipeline_align(a, b, mesh, block_rows=16, scoring=Scoring(gap=-3))
+    pipeline_align(a[:80], b, mesh, block_rows=16)
+    assert len(builds) == 3

@@ -1,7 +1,6 @@
 """Protein/BLOSUM substitution-matrix tests."""
 
 import numpy as np
-import pytest
 
 import swtpu
 from swtpu.core import oracle
@@ -54,50 +53,9 @@ def test_blosum62_affine():
     assert r.max_score == ref.max_score
 
 
-def test_stripe_substitution_matches_scan():
-    """Pallas substitution mode (query-profile select chain) vs the XLA
-    sub_table path: DNA matrix and BLOSUM62, positions + P exact."""
-    import jax.numpy as jnp
-    import numpy as np
-    import swtpu
-    from swtpu.core.encode import PROTEIN_ALPHABET, encode, random_pair
-    from swtpu.core.substitution import BLOSUM62, dna_matrix, embed_sentinels
-    from swtpu.kernels.pallas_fill import (p_stripes_to_rowmajor,
-                                           stripe_fill_raw)
-    from swtpu.kernels.scan_fill import diag_to_rowmajor, scan_fill
-
-    # DNA matrix == the default compare path
-    a, b = random_pair(90, 300, seed=61)
-    ref = scan_fill(jnp.asarray(a), jnp.asarray(b),
-                    sub_table=jnp.asarray(embed_sentinels(dna_matrix())),
-                    return_p=True)
-    out = stripe_fill_raw(a, b, T=256, R=2, CB=2, C=128, return_p=True,
-                          substitution=dna_matrix())
-    assert int(out.max_score) == int(ref.max_score)
-    assert (int(out.max_i), int(out.max_j)) == (int(ref.max_i),
-                                                int(ref.max_j))
-    P1 = p_stripes_to_rowmajor(np.asarray(out.p_stripes), 300, 90)
-    P2 = diag_to_rowmajor(ref.p_diag, 300, 90)
-    np.testing.assert_array_equal(P1, P2)
-
-    # BLOSUM62 protein, affine gaps
-    rng = np.random.default_rng(8)
-    pa = rng.integers(0, 20, 120).astype(np.int8)
-    pb = rng.integers(0, 20, 400).astype(np.int8)
-    pb[100:160] = pa[20:80]
-    sc = swtpu.Scoring(mode="affine", gap_open=-11, gap_extend=-1)
-    ref = scan_fill(jnp.asarray(pa), jnp.asarray(pb), scoring=sc,
-                    sub_table=jnp.asarray(embed_sentinels(BLOSUM62)))
-    out = stripe_fill_raw(pa, pb, scoring=sc, T=256, R=2, C=128,
-                          substitution=BLOSUM62)
-    assert int(out.max_score) == int(ref.max_score)
-    assert (int(out.max_i), int(out.max_j)) == (int(ref.max_i),
-                                                int(ref.max_j))
-    np.testing.assert_array_equal(np.asarray(out.right_col),
-                                  np.asarray(ref.right_col))
-
-
-def test_engine_substitution_stripe_plan():
+def test_engine_substitution_stripe_plan(fake_gpu):
+    """Forcing the kernel plan with traceback on a protein pair yields the
+    scan's exact alignment (the kernel is score-only)."""
     import numpy as np
     import swtpu
     from swtpu.core.substitution import BLOSUM62
@@ -108,7 +66,7 @@ def test_engine_substitution_stripe_plan():
     pb[50:100] = pa[10:60]
     r_scan = swtpu.align(pa, pb, substitution=BLOSUM62, plan="scan",
                          alphabet=swtpu.core.encode.PROTEIN_ALPHABET)
-    r_str = swtpu.align(pa, pb, substitution=BLOSUM62, plan="stripe",
+    r_str = swtpu.align(pa, pb, substitution=BLOSUM62, plan="wavefront",
                         alphabet=swtpu.core.encode.PROTEIN_ALPHABET)
     assert r_str.max_score == r_scan.max_score
     assert (r_str.max_i, r_str.max_j) == (r_scan.max_i, r_scan.max_j)
@@ -116,7 +74,7 @@ def test_engine_substitution_stripe_plan():
     assert r_str.aligned_b == r_scan.aligned_b
 
 
-def test_blosum_affine_traceback_rescore():
+def test_blosum_affine_traceback_rescore(fake_gpu):
     """Every walked BLOSUM62+affine alignment must re-score to its reported
     max (the Gotoh state-bit invariant, across both plans)."""
     import numpy as np
@@ -134,7 +92,7 @@ def test_blosum_affine_traceback_rescore():
         k = min(m, n) // 2
         pb[:k] = pa[:k]
         r = swtpu.align(pa, pb, scoring=sc, substitution=BLOSUM62,
-                        plan="stripe" if t % 2 else "scan",
+                        plan="wavefront" if t % 2 else "scan",
                         alphabet=PROTEIN_ALPHABET)
         if r.max_score == 0:
             continue
@@ -152,53 +110,15 @@ def test_blosum_affine_traceback_rescore():
     assert checked >= 4
 
 
-def test_large_score_table_uses_unpacked_tree():
-    """Tables with |S| > 127 can't int8-pack; the unpacked select tree
-    must still be exact (and agree with the packed path on a scaled-down
-    twin)."""
-    import numpy as np
-    import swtpu
-    from swtpu.core import oracle
-    from swtpu.core.encode import PROTEIN_ALPHABET
-    from swtpu.core.substitution import BLOSUM62
-    from swtpu.kernels import pallas_fill as pf
-
-    rng = np.random.default_rng(13)
-    pa = rng.integers(0, 20, 64).astype(np.int8)
-    pb = rng.integers(0, 20, 150).astype(np.int8)
-    pb[20:70] = pa[5:55]
-    big = (np.asarray(BLOSUM62, np.int32) * 20)     # |S| up to 220
-    assert not pf._pack_fits(big)
-    sc = swtpu.Scoring(gap=-40)
-    ref = oracle.fill(pa, pb, sc, sub=big)
-    out = pf.stripe_fill_raw(pa, pb, scoring=sc, substitution=big,
-                             T=128, R=1)
-    assert int(out.max_score) == ref.max_score
-    assert (int(out.max_i), int(out.max_j)) == ref.max_ij
-
-    # packed path on the unscaled table agrees with the oracle too
-    assert pf._pack_fits(BLOSUM62)
-    ref2 = oracle.fill(pa, pb, sub=np.asarray(BLOSUM62))
-    out2 = pf.stripe_fill_raw(pa, pb, substitution=BLOSUM62, T=128, R=1)
-    assert int(out2.max_score) == ref2.max_score
-    assert (int(out2.max_i), int(out2.max_j)) == ref2.max_ij
-
-
-def test_substitution_score_fast_path(monkeypatch):
+def test_substitution_score_fast_path(fake_gpu):
     """The device-resident score fast path must serve substitution too
-    (profile built on device; one fetch) and match the general path."""
+    (table embedded on device; one fetch) and match the oracle."""
     import numpy as np
-    import swtpu
     import swtpu.engine.align as al
     from swtpu.core import oracle
     from swtpu.core.encode import PROTEIN_ALPHABET
     from swtpu.core.substitution import BLOSUM62
-    from swtpu.dispatch import plan as planmod
-    from swtpu.kernels import pallas_fill as pf
 
-    monkeypatch.setattr(planmod, "current_platform", lambda: "tpu")
-    monkeypatch.setattr(pf, "_interpret_default", lambda: True)
-    monkeypatch.setattr(al, "_score_cache", {})
     rng = np.random.default_rng(23)
     pa = rng.integers(0, 20, 80).astype(np.int8)
     pb = rng.integers(0, 20, 120).astype(np.int8)
@@ -207,9 +127,9 @@ def test_substitution_score_fast_path(monkeypatch):
                swtpu.Scoring(mode="affine", gap_open=-11, gap_extend=-1)):
         ref = oracle.fill(pa, pb, sc, sub=np.asarray(BLOSUM62))
         r = al.align(pa, pb, scoring=sc, substitution=BLOSUM62,
-                     traceback=False, plan="stripe",
+                     traceback=False, plan="wavefront",
                      alphabet=PROTEIN_ALPHABET)
         assert r.max_score == ref.max_score, sc.mode
         assert (r.max_i, r.max_j) == ref.max_ij, sc.mode
         assert r.last_cell == int(ref.H[-1, -1]), sc.mode
-    assert len(al._score_cache) == 2      # the fast path actually served
+    assert fake_gpu == [(80, 120)] * 2    # the fast path actually served
